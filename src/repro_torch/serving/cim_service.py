@@ -1,0 +1,147 @@
+"""Batched CIM inference service over a trace-lowered executor.
+
+The serving-side consumer of cimsim.executor: compile a workload for a
+CIM chip once, lower the meta-operator flow once onto a device, then
+serve request traffic by stacking queued inputs on the executor's batch
+axis — one batched pass per batch instead of one interpreter walk per
+request.  ``use_executor=False`` keeps the op-by-op interpreter as a
+reference/fallback path (same outputs, orders of magnitude slower),
+which is also how the service is tested.
+
+The service runs on ``device`` (default ``"cuda"``: on the card every
+crossbar MVM, the calibration pass's included, runs the CUDA kernel).
+A genuine ``LoweringError`` (a flow the executor cannot lower
+bit-exactly) falls back to the interpreter, which runs the kernel too;
+route, build and launch errors propagate.
+
+Units and clocks: ``dispatch`` returns **wall-clock seconds**
+(``time.time()`` around the device pass, which ends when the outputs
+reach the host); the compiled plan's latency/energy estimates
+are **compiler cycles/pJ** and never mix into serve times.
+Thread-safety: ``stats`` and the warm-shape set are plain mutable state —
+one service instance per serving thread.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from ..core import compiler
+from ..core.abstraction import CIMArch
+from ..core.graph import Graph
+from ..kernels.backend import resolve_device
+from ..kernels.cim_mvm import CimMvmParams, cim_mvm_params
+from .common import CimRequest, ServiceStats  # noqa: F401  (re-export)
+
+
+class CimBatchService:
+    """Fixed-workload inference service with batched execution.
+
+    Weights default to the deterministic test weights and shifts to one
+    reference calibration pass (the §4.1 verification setup); embedders
+    can pass their own ``weights``/``shifts`` (numpy arrays or tensors,
+    e.g. from ``cimsim.functional.weights_from_reference``).
+
+    ``mode`` forces the executor's crossbar-MVM route (``"compiled"`` or
+    ``"torch"``); by default the registry picks it for ``device``.
+    ``compile_kwargs`` carries compiler knob overrides (binding /
+    use_pipeline / use_duplication); ``level`` stays a convenience alias
+    for the common single-knob case.
+    """
+
+    def __init__(self, graph: Graph, arch: CIMArch, *, level=None,
+                 seed: int = 0, max_batch: int = 8,
+                 params: Optional[CimMvmParams] = None,
+                 weights: Optional[Dict] = None,
+                 shifts: Optional[Dict[str, int]] = None,
+                 use_executor: bool = True,
+                 mode: Optional[str] = None,
+                 device="cuda",
+                 compile_kwargs: Optional[Dict] = None):
+        from ..cimsim.functional import (calibrate_shifts, make_input,
+                                         make_weights)
+        self.device = resolve_device(device)
+        self.graph = graph
+        self.arch = arch
+        self.max_batch = max_batch
+        self.use_executor = use_executor
+        self.params = params or cim_mvm_params(arch)
+        self.weights = weights if weights is not None \
+            else make_weights(graph, seed)
+        self.shifts = shifts if shifts is not None else calibrate_shifts(
+            graph, self.weights, make_input(graph, seed), self.params,
+            device=self.device)
+        self.stats = ServiceStats()
+        self._warmed: set = set()        # batch sizes already served once
+        kwargs = dict(compile_kwargs or {})
+        kwargs.setdefault("level", level)
+        if use_executor:
+            from ..cimsim.executor import LoweringError, lower
+            res = compiler.compile_graph(graph, arch, **kwargs)
+            try:
+                self._exe = lower(res.plan, res.program, params=self.params,
+                                  mode=mode, device=self.device)
+                self._packed = self._exe.pack(self.weights)
+            except LoweringError:
+                # flow has no bit-exact fast lowering: serve op by op
+                self.use_executor = use_executor = False
+        if not use_executor:
+            from ..cimsim.functional import FunctionalSimulator
+            res = compiler.compile_graph(graph, arch, expand=True, **kwargs)
+            self._sim = FunctionalSimulator(res.plan, res.program,
+                                            self.weights, self.shifts,
+                                            params=self.params,
+                                            device=self.device)
+
+    @property
+    def executor_stats(self):
+        """The lowered executable's ``ExecutorStats`` (segments, streamed
+        weight updates, resolved kernel route), or ``None`` when the
+        service degraded to the op-by-op interpreter."""
+        return self._exe.stats if self.use_executor else None
+
+    def serve(self, requests: List[CimRequest]) -> List[CimRequest]:
+        """Serve ``requests`` in arrival order, ``max_batch`` at a time.
+
+        Each batch is one executor pass.  The first pass of a new batch
+        shape runs once untimed (first-use costs: kernel build, lazy
+        allocations), so ``latency_s`` / ``ServiceStats`` report
+        steady-state serving cost.
+        """
+        done: List[CimRequest] = []
+        for i in range(0, len(requests), self.max_batch):
+            batch = requests[i:i + self.max_batch]
+            dt = self.dispatch(batch)
+            for r in batch:
+                r.latency_s = dt
+            self.stats.record([dt] * len(batch), dt)
+            done.extend(batch)
+        return done
+
+    def dispatch(self, batch: List[CimRequest]) -> float:
+        """Serve one batch (warm-once per shape), return the wall time."""
+        if not batch:
+            return 0.0
+        if self.use_executor and len(batch) not in self._warmed:
+            self._serve_batch(batch)
+            self._warmed.add(len(batch))
+        t0 = time.time()
+        self._serve_batch(batch)
+        return time.time() - t0
+
+    def _serve_batch(self, batch: List[CimRequest]) -> None:
+        if not self.use_executor:
+            for r in batch:
+                out = self._sim.run({k: np.asarray(v)
+                                     for k, v in r.inputs.items()})
+                r.outputs = {t: np.asarray(out[t]) for t in self.graph.outputs}
+            return
+        stacked = {name: np.stack([np.asarray(r.inputs[name])
+                                   for r in batch])
+                   for name in self.graph.inputs}
+        outs = self._exe.run_batch(stacked, packed=self._packed,
+                                   shifts=self.shifts)
+        for i, r in enumerate(batch):
+            r.outputs = {t: outs[t][i] for t in self.graph.outputs}

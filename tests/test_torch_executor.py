@@ -1,0 +1,254 @@
+"""The port's trace-lowered executor against the JAX package's, on the CPU.
+
+Mirrors tests/test_executor.py: every case runs the same seeded weights,
+shifts and inputs through ``repro_torch``'s executor (``device="cpu"``,
+the plain-version route) and through ``repro``'s executor and op-by-op
+interpreter, and requires equal outputs (tolerance 0: the CIM path is
+integer and the float DCOM ops run the same NumPy float64 code).
+"""
+import functools
+import types
+
+import jax
+import numpy as np
+import pytest
+
+from repro.cimsim import executor as jex
+from repro.cimsim import functional as jfn
+from repro.core import abstraction as ja
+from repro.core import compiler as jcompiler
+from repro.core import graph as jgraph
+from repro.kernels.cim_mvm import cim_mvm_params as jparams
+from repro.kernels.cim_mvm import ref as jref
+from repro.workloads import get_workload as jwl
+from repro_torch.cimsim import executor as tex
+from repro_torch.cimsim import functional as tfn
+from repro_torch.core import abstraction as ta
+from repro_torch.core import compiler as tcompiler
+from repro_torch.core import graph as tgraph
+from repro_torch.kernels import backend
+from repro_torch.kernels.cim_mvm import cim_mvm_params as tparams
+from repro_torch.workloads import get_workload as twl
+
+MODES = ["WLM", "XBM", "CM"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jitted_reference_oracle():
+    """The reference interpreter calls the JAX oracle once per crossbar
+    read, thousands of times per tiny_cnn inference; run that same
+    function under ``jax.jit`` so each call is one compiled dispatch."""
+    oracle = jax.jit(jref.cim_mvm_ref, static_argnames=(
+        "act_bits", "weight_bits", "dac_bits", "cell_bits", "parallel_row",
+        "adc_bits"))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jfn, "kref", types.SimpleNamespace(cim_mvm_ref=oracle))
+        yield
+
+
+def _arch(mod, kind: str, mode: str = "WLM"):
+    """The SMALL test arch of tests/test_executor.py in package ``mod``:
+    ``exact`` (8-bit ADC), ``saturating`` (4-bit ADC) or ``streamed``
+    (the docs/KERNELS.md 2-core, 1-crossbar chip that forces segments)."""
+    n_cores, n_xbs = (2, 1) if kind == "streamed" else (4, 2)
+    return mod.CIMArch(
+        name=f"test-{kind}", mode=mod.ComputingMode[mode],
+        chip=mod.ChipTier(core_number=(n_cores, 1), alu_ops_per_cycle=64,
+                          l0_bw_bits=1024),
+        core=mod.CoreTier(xb_number=(n_xbs, 1), l1_bw_bits=1024),
+        xb=mod.CrossbarTier(xb_size=(32, 32), dac_bits=1,
+                            adc_bits=4 if kind == "saturating" else 8,
+                            cell_type=mod.CellType.SRAM, cell_precision=2,
+                            parallel_row=8))
+
+
+def _attn_graph(mod):
+    Node = mod.Node
+    nodes = [
+        Node("fc1", "Gemm", ["input"], ["fc1.out"],
+             {"weight_shape": (16, 16)}),
+        Node("sm", "Softmax", ["fc1.out"], ["sm.out"]),
+        Node("mm", "MatMul", ["sm.out", "fc1.out"], ["mm.out"],
+             {"transpose_b": True}),
+        Node("ln", "LayerNorm", ["mm.out"], ["ln.out"]),
+        Node("ge", "Gelu", ["ln.out"], ["ge.out"]),
+        Node("fc2", "Gemm", ["ge.out"], ["fc2.out"],
+             {"weight_shape": (4, 5)}),
+    ]
+    return mod.Graph("attn_toy", nodes, {"input": (4, 16)}, ["fc2.out"])
+
+
+def _split_graph(mod):
+    Node = mod.Node
+    nodes = [
+        Node("fc1", "Gemm", ["input"], ["fc1.out"],
+             {"weight_shape": (16, 12)}),
+        Node("sp", "Split", ["fc1.out"], ["sp.a", "sp.b"],
+             {"axis": -1, "parts": [4, 8]}),
+        Node("ra", "Relu", ["sp.a"], ["ra.out"]),
+        Node("rb", "Relu", ["sp.b"], ["rb.out"]),
+        Node("cat", "Concat", ["ra.out", "rb.out"], ["cat.out"],
+             {"axis": -1}),
+        Node("fc2", "Gemm", ["cat.out"], ["fc2.out"],
+             {"weight_shape": (12, 5)}),
+    ]
+    return mod.Graph("splitnet", nodes, {"input": (16,)}, ["fc2.out"])
+
+
+GRAPHS = {"tiny_mlp": (lambda: jwl("tiny_mlp"), lambda: twl("tiny_mlp")),
+          "tiny_cnn": (lambda: jwl("tiny_cnn"), lambda: twl("tiny_cnn")),
+          "split": (lambda: _split_graph(jgraph),
+                    lambda: _split_graph(tgraph)),
+          "attn": (lambda: _attn_graph(jgraph), lambda: _attn_graph(tgraph))}
+
+
+#: inputs per cell; a batch-b case serves the first b of them
+N_INPUTS = 3
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(wl: str, kind: str, mode: str):
+    """(weights, shifts, inputs, repro interpreter outputs per input,
+    repro executor outputs for the stacked inputs) for one cell."""
+    g = GRAPHS[wl][0]()
+    arch = _arch(ja, kind, mode)
+    params = jparams(arch)
+    weights = jfn.make_weights(g, 0)
+    inputs = [jfn.make_input(g, i) for i in range(N_INPUTS)]
+    shifts = jfn.calibrate_shifts(g, weights, inputs[0], params)
+    res = jcompiler.compile_graph(g, arch, expand=True)
+    sim = jfn.FunctionalSimulator(res.plan, res.program, weights, shifts,
+                                  params=params)
+    interp = [sim.run(x) for x in inputs]
+    res = jcompiler.compile_graph(g, arch)
+    exe = jex.lower(res.plan, res.program, params=params)
+    stacked = {k: np.stack([x[k] for x in inputs]) for k in g.inputs}
+    return weights, shifts, inputs, interp, exe.run_batch(
+        stacked, weights, shifts)
+
+
+def _port(wl: str, kind: str, mode: str, batch: int):
+    weights, shifts, inputs, interp, jexe = _reference(wl, kind, mode)
+    g = GRAPHS[wl][1]()
+    arch = _arch(ta, kind, mode)
+    params = tparams(arch)
+    assert tfn.calibrate_shifts(g, weights, inputs[0], params,
+                                device="cpu") == shifts
+    res = tcompiler.compile_graph(g, arch)
+    exe = tex.lower(res.plan, res.program, params=params, device="cpu")
+    stacked = {k: np.stack([x[k] for x in inputs[:batch]])
+               for k in g.inputs}
+    out = exe.run_batch(stacked, weights, shifts)
+    for t in g.outputs:
+        np.testing.assert_array_equal(out[t], jexe[t][:batch])
+        np.testing.assert_array_equal(
+            out[t], np.stack([o[t] for o in interp[:batch]]))
+    return g, exe, out
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("kind", ["exact", "saturating"])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("wl", ["tiny_mlp", "tiny_cnn"])
+def test_executor_matches_reference(wl, mode, kind, batch):
+    _, exe, _ = _port(wl, kind, mode, batch)
+    assert exe.stats.cim_reads > 0
+    assert exe.stats.kernel_mode == "torch"
+    if exe.stats.streamed:
+        assert exe.stats.segments > 1 and exe.stats.swaps > 0
+        assert exe.stats.matmul_nodes == 0
+    elif kind == "exact":
+        assert exe.stats.matmul_nodes == exe.stats.cim_nodes
+    else:
+        assert exe.stats.matmul_nodes == 0     # tile-batched MVM path
+
+
+def test_executor_split_graph():
+    _port("split", "exact", "WLM", 2)
+
+
+@pytest.mark.parametrize("kind", ["exact", "saturating"])
+def test_executor_float_and_matmul_dcom_ops(kind):
+    """MatMul (transpose_b), Softmax, LayerNorm and Gelu: the float ops
+    take the host round-trip through the NumPy float64 reference."""
+    _port("attn", kind, "WLM", 2)
+
+
+@pytest.mark.parametrize("wl", ["tiny_mlp", "tiny_cnn"])
+def test_executor_streamed_weight_updates(wl):
+    """The docs/KERNELS.md chip cannot hold the model: the plan has
+    segments and the executor swaps weights through the crossbar pool."""
+    _, exe, _ = _port(wl, "streamed", "WLM", 3)
+    assert exe.stats.streamed and exe.stats.swaps > 0
+    assert exe.stats.segments > 1
+
+
+def test_interpreter_and_entry_points_match_reference():
+    """The port's op-by-op interpreter, ``simulate`` and
+    ``compile_and_verify`` on the saturating arch."""
+    weights, shifts, inputs, interp, _ = _reference("tiny_cnn", "saturating",
+                                                    "XBM")
+    g, arch = twl("tiny_cnn"), _arch(ta, "saturating", "XBM")
+    res = tcompiler.compile_graph(g, arch, expand=True)
+    sim = tfn.FunctionalSimulator(res.plan, res.program, weights, shifts,
+                                  device="cpu")
+    np.testing.assert_array_equal(sim.run(inputs[0])["fc.out"],
+                                  interp[0]["fc.out"])
+    sim_out, ref_out, _ = tfn.simulate(g, arch, device="cpu")
+    exe_out, _, stats = tfn.simulate(g, arch, use_executor=True,
+                                     device="cpu")
+    jsim_out, jref_out, _ = jfn.simulate(jwl("tiny_cnn"),
+                                         _arch(ja, "saturating", "XBM"))
+    np.testing.assert_array_equal(sim_out["fc.out"], jsim_out["fc.out"])
+    np.testing.assert_array_equal(exe_out["fc.out"], jsim_out["fc.out"])
+    np.testing.assert_array_equal(ref_out["fc.out"], jref_out["fc.out"])
+    assert stats.cim_reads > 0
+    rep = tfn.compile_and_verify(g, arch, batch=2, device="cpu")
+    assert rep.ok and rep.lower_s > 0.0
+
+
+def test_pack_takes_weights_from_reference():
+    weights, shifts, inputs, _, jexe = _reference("tiny_mlp", "saturating",
+                                                  "WLM")
+    g, arch = twl("tiny_mlp"), _arch(ta, "saturating", "WLM")
+    params = tparams(arch)
+    tw, tsh = tfn.weights_from_reference(weights, shifts, params, "cpu")
+    assert all(w.dtype.is_floating_point is False for w in tw.values())
+    res = tcompiler.compile_graph(g, arch)
+    exe = tex.lower(res.plan, res.program, params=params, device="cpu")
+    out = exe.run_batch({"input": np.stack([x["input"] for x in inputs])},
+                        packed=exe.pack(tw), shifts=tsh)
+    np.testing.assert_array_equal(out["fc2.out"], jexe["fc2.out"])
+    bad = dict(weights, fc1=weights["fc1"] * 4)
+    with pytest.raises(ValueError, match="signed 8-bit"):
+        tfn.weights_from_reference(bad, shifts, params, "cpu")
+    with pytest.raises(TypeError):
+        tfn.weights_from_reference(
+            dict(weights, fc1=weights["fc1"].astype(np.float32)), shifts,
+            params, "cpu")
+
+
+def test_lower_cache_and_route_errors():
+    g, arch = twl("tiny_mlp"), _arch(ta, "exact")
+    res = tcompiler.compile_graph(g, arch)
+    e1 = tex.lower(res.plan, res.program, device="cpu")
+    assert tex.lower(res.plan, res.program, device="cpu") is e1
+    assert tex.lower(res.plan, res.program, device="cpu",
+                     cache=False) is not e1
+    assert tex.lower(res.plan, res.program, device="cpu",
+                     params=tparams(_arch(ta, "saturating"))) is not e1
+    # a route the registry cannot satisfy raises; it is not a LoweringError
+    with pytest.raises(backend.KernelUnsupportedError):
+        tex.lower(res.plan, res.program, device="cpu", mode="compiled",
+                  cache=False)
+    assert not issubclass(backend.KernelUnsupportedError, tex.LoweringError)
+
+
+def test_compile_and_verify_falls_back_on_lowering_error(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise tex.LoweringError("forced for test")
+
+    monkeypatch.setattr(tex, "lower", refuse)
+    rep = tfn.compile_and_verify(twl("tiny_mlp"), _arch(ta, "exact"),
+                                 batch=2, device="cpu")
+    assert rep.ok and rep.lower_s == 0.0    # interpreter path was used
