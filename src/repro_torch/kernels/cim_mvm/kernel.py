@@ -7,30 +7,37 @@ and loaded with ``ctypes``.  Nothing is built or imported when this
 module is imported: the CPU tests import it on machines without
 ``nvcc``.
 
-Two wrappers launch the one kernel, each with its own launch counter in
-``LAUNCHES`` (incremented where the kernel is launched, and nowhere
-else):
+Two wrappers launch the kernel, each with its own launch counter in
+``LAUNCHES`` (incremented where the kernel is launched, once per call,
+and nowhere else):
 
   * ``cim_mvm_tiles_cuda`` — (T,M,R) x (T,R,C) -> (T,M,C) int32,
   * ``cim_mvm_cuda``       — (M,R) x (R,C) -> (M,C) int32, the case T = 1.
 
 Operands are unsigned integers: uint8 when every phase and slice sits in
 the low 8 bits (``ceil(act_bits/dac_bits)*dac_bits <= 8`` and likewise
-for the weights), else int32 (see ``operand_dtype``).  A wrapper checks
-device, dtype, shape and contiguity, raises on anything else, allocates
-the output and launches on PyTorch's current stream.  It never falls
-back to the plain version.
+for the weights), else int32 (see ``operand_dtype``).  uint8 operands
+run the tensor-core instantiation, int32 ones the CUDA-core one (see the
+source's header).  ``plan_launch`` decides, in plain Python, how the
+tensor-core kernel's work splits across blocks: by output tile, by a
+range of row groups and by a range of bit phases, each block adding its
+partial sums into the zeroed output with integer atomics.  A wrapper
+checks device, dtype, shape and contiguity, raises on anything else,
+allocates the output and launches on PyTorch's current stream.  It
+never falls back to the plain version.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import hashlib
 import math
 import os
 import pathlib
 import shutil
 import subprocess
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -89,7 +96,7 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         fn = lib.cim_mvm_tiles_launch
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 19
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _LIB = lib
@@ -103,6 +110,119 @@ def operand_dtype(params) -> torch.dtype:
     xb = math.ceil(params.act_bits / params.dac_bits) * params.dac_bits
     wb = math.ceil(params.weight_bits / params.cell_bits) * params.cell_bits
     return torch.uint8 if max(xb, wb) <= 8 else torch.int32
+
+
+# -- launch planning ---------------------------------------------------------
+# The tile constants of csrc/cim_mvm.cu; the launch refuses a plan whose
+# constants differ from the compiled ones.
+
+#: streaming multiprocessors of an H100 SXM
+SM_COUNT = 132
+#: blocks the planner aims for when the output tiles alone are fewer
+TARGET_BLOCKS = 2 * SM_COUNT
+#: shared memory one block may use on Hopper
+SMEM_LIMIT = 232_448
+#: tensor-core route: output tile, staged k-chunk, ring depth, mma depth
+MMA_BM, MMA_BN, MMA_KC, MMA_STAGES, K_STEP = 64, 32, 128, 3, 32
+#: staged row pitches in bytes (x rows of a chunk, w rows of a chunk)
+MMA_XSTR, MMA_WSTR = MMA_KC + 16, MMA_BN + 16
+#: CUDA-core route (int32 operands): output tile, shared-memory budget
+CC_TILE, CC_SMEM_BUDGET = 64, 160 * 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one (T,M,R) x (T,R,C) launch maps onto blocks.
+
+    Block ``(bx, by, t)`` owns output tile ``bx`` (row tile
+    ``bx // c_tiles``, column tile ``bx % c_tiles``) of crossbar tile
+    ``t``, the row groups of group range ``by // phase_splits`` and the
+    phases of phase range ``by % phase_splits``, for every slice.
+    """
+
+    route: str                 # "mma" (uint8) or "cuda_core" (int32)
+    t: int
+    m: int
+    r: int
+    c: int
+    n_p: int
+    n_s: int
+    parallel_row: int          # group length, <= r
+    bm: int
+    bn: int
+    kc: int                    # k rows per staged chunk
+    groups_per_block: int
+    phases_per_block: int
+    smem_bytes: int
+
+    @property
+    def n_groups(self) -> int:
+        return math.ceil(self.r / self.parallel_row)
+
+    @property
+    def m_tiles(self) -> int:
+        return math.ceil(self.m / self.bm)
+
+    @property
+    def c_tiles(self) -> int:
+        return math.ceil(self.c / self.bn)
+
+    @property
+    def group_splits(self) -> int:
+        return math.ceil(self.n_groups / self.groups_per_block)
+
+    @property
+    def phase_splits(self) -> int:
+        return math.ceil(self.n_p / self.phases_per_block)
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        return (self.m_tiles * self.c_tiles,
+                self.group_splits * self.phase_splits, self.t)
+
+    @property
+    def blocks(self) -> int:
+        gx, gy, gz = self.grid
+        return gx * gy * gz
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_launch(params, t: int, m: int, r: int, c: int) -> LaunchPlan:
+    """The launch of ``params`` at (T, M, R, C).
+
+    uint8 operands take the tensor-core kernel: output tiles of
+    MMA_BM x MMA_BN.  Where the tiles give fewer than TARGET_BLOCKS
+    blocks, the row groups and phases split into ranges, with the fewest
+    ranges (atomic adds per output element) that reach the target, and
+    phases before groups (phases are equal, the last group may be
+    short); where even a full split cannot reach it, every block takes
+    one group and one phase.  int32 operands take the CUDA-core kernel,
+    unsplit.
+    """
+    n_p = math.ceil(params.act_bits / params.dac_bits)
+    n_s = math.ceil(params.weight_bits / params.cell_bits)
+    pr = min(params.parallel_row, r)
+    n_groups = math.ceil(r / pr)
+    if operand_dtype(params) == torch.int32:
+        kc = min(pr, CC_SMEM_BUDGET // (2 * CC_TILE * 4))
+        return LaunchPlan("cuda_core", t, m, r, c, n_p, n_s, pr, CC_TILE,
+                          CC_TILE, kc, n_groups, n_p, 2 * CC_TILE * kc * 4)
+    smem = MMA_STAGES * (MMA_BM * MMA_XSTR + MMA_KC * MMA_WSTR)
+    tiles = t * math.ceil(m / MMA_BM) * math.ceil(c / MMA_BN)
+    need = math.ceil(TARGET_BLOCKS / tiles)
+    gpb, ppb = n_groups, n_p
+    if n_groups * n_p <= need:
+        gpb, ppb = 1, 1
+    elif need > 1:
+        _, _, gpb, ppb = min(
+            (splits, gs, gpb_, ppb_)
+            for gpb_ in range(1, n_groups + 1)
+            for ppb_ in range(1, n_p + 1)
+            for gs in (math.ceil(n_groups / gpb_),)
+            for splits in (gs * math.ceil(n_p / ppb_),)
+            if splits >= need)
+    return LaunchPlan("mma", t, m, r, c, n_p, n_s, pr, MMA_BM, MMA_BN,
+                      MMA_KC, gpb, ppb, smem)
 
 
 def _launch(name: str, x: torch.Tensor, w: torch.Tensor, params,
@@ -119,19 +239,22 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, params,
             raise ValueError(f"{name}: {label} must be contiguous")
     if x.device != w.device:
         raise ValueError(f"{name}: x_u on {x.device}, w_u on {w.device}")
-    out = torch.empty((t, m, c), dtype=torch.int32, device=x.device)
+    # zeroed: the tensor-core kernel's blocks add their partial sums in
+    out = torch.zeros((t, m, c), dtype=torch.int32, device=x.device)
     if out.numel() == 0:          # an empty grid is a launch error
         return out
-    n_p = math.ceil(params.act_bits / params.dac_bits)
-    n_s = math.ceil(params.weight_bits / params.cell_bits)
+    plan = plan_launch(params, t, m, r, c)
     adc_max = min((1 << params.adc_bits) - 1, 2 ** 31 - 1)
+    gx, gy, _ = plan.grid
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.cim_mvm_tiles_launch(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), t, m, r, c,
-            n_p, n_s, params.dac_bits, params.cell_bits,
-            min(params.parallel_row, r), adc_max, x.element_size(), stream)
+            plan.n_p, plan.n_s, params.dac_bits, params.cell_bits,
+            plan.parallel_row, adc_max, x.element_size(), plan.bm, plan.bn,
+            plan.kc, plan.groups_per_block, plan.phases_per_block, gx, gy,
+            plan.smem_bytes, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError "
                            f"{err}")

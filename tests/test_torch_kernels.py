@@ -4,11 +4,15 @@ The plain PyTorch version (``repro_torch.kernels.cim_mvm.ref``) is held
 to ``repro.kernels.cim_mvm.ref`` bit for bit (tolerance 0: the path is
 integer) on seeded random shapes, the committed goldens replay through
 the port's three entry points, and the route registry's auto and raise
-cases are pinned.  The CUDA kernel itself is held to the plain version
-by the ``cuda``-marked tests, which run on a card only; a card host
-without JAX collects this file too and runs just the port's side.
+cases are pinned, and the tensor-core kernel's launch planner is checked
+on every main-path shape (shared memory, k-step padding, each term
+covered once, enough blocks).  The CUDA kernel itself is held to the
+plain version by the ``cuda``-marked tests, which run on a card only; a
+card host without JAX collects this file too and runs just the port's
+side.
 """
 import dataclasses
+import importlib.util
 import pathlib
 
 import numpy as np
@@ -20,8 +24,8 @@ from repro_torch.kernels.cim_mvm import (CimMvmParams, cim_mvm,
                                          cim_mvm_signed, cim_mvm_tiles, kernel)
 from repro_torch.kernels.cim_mvm import ref as tref
 
-GOLDEN = sorted((pathlib.Path(__file__).resolve().parent / "golden"
-                 / "cim_mvm").glob("*.npz"))
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+GOLDEN = sorted((ROOT / "tests" / "golden" / "cim_mvm").glob("*.npz"))
 ENTRY = {"cim_mvm": cim_mvm, "cim_mvm_tiles": cim_mvm_tiles,
          "cim_mvm_signed": cim_mvm_signed}
 
@@ -34,6 +38,10 @@ PARAMS = [
     CimMvmParams(8, 8, 8, 2, 128, 8),      # PUMA-like
     CimMvmParams(8, 8, 1, 1, 1152, 8),     # jia-issc21, saturating
     CimMvmParams(8, 8, 3, 2, 16, 7),       # planes past the low byte
+    CimMvmParams(8, 8, 1, 2, 100, 5),      # groups not a multiple of 32
+    CimMvmParams(8, 8, 1, 2, 300, 6),      # likewise, longer than a chunk
+    CimMvmParams(8, 8, 8, 2, 128, 1),      # PUMA: 1-bit ADC, adc_max 1
+    CimMvmParams(8, 8, 1, 1, 32, 6),       # jain-jssc21: adc_max 63
 ]
 
 
@@ -218,6 +226,111 @@ def test_operand_dtype():
         == torch.int32
 
 
+# ------------------------------------------------------- launch planner
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def main_path():
+    """chip_smoke's main path on the CPU: (params, one batch's dispatch
+    shapes, the calibration's (1, M, R, C) shapes)."""
+    _, _, params, tiles, mvm = _chip_smoke().main_path("cpu")
+    return params, tiles, [(1, m, r, c) for m, r, c in mvm]
+
+
+def _spans(plan: kernel.LaunchPlan):
+    """(t, row tile, column tile, groups, phases) of every block, as
+    ``mma_kernel`` in csrc/cim_mvm.cu decodes its block index."""
+    gx, gy, gz = plan.grid
+    for t in range(gz):
+        for bx in range(gx):
+            for by in range(gy):
+                g0 = (by // plan.phase_splits) * plan.groups_per_block
+                p0 = (by % plan.phase_splits) * plan.phases_per_block
+                yield (t, bx // plan.c_tiles, bx % plan.c_tiles,
+                       range(g0, min(plan.n_groups,
+                                     g0 + plan.groups_per_block)),
+                       range(p0, min(plan.n_p, p0 + plan.phases_per_block)))
+
+
+def _check_plan(plan: kernel.LaunchPlan) -> None:
+    """Shared memory fits; the groups tile R and each pads to whole
+    k-steps (as the kernel's ``group_chunks`` pads it); the blocks cover
+    each (crossbar tile, output tile, group, phase, slice) term exactly
+    once."""
+    assert plan.smem_bytes <= kernel.SMEM_LIMIT == 232_448
+    pr = plan.parallel_row
+    lens = [min(pr, plan.r - g * pr) for g in range(plan.n_groups)]
+    assert sum(lens) == plan.r and max(lens) == pr and min(lens) > 0
+    for g, n in enumerate(lens):
+        k = -(-n // kernel.K_STEP)
+        assert (k - 1) * kernel.K_STEP < n <= k * kernel.K_STEP, (g, n, k)
+    seen = np.zeros((plan.t, plan.m_tiles, plan.c_tiles, plan.n_groups,
+                     plan.n_p, plan.n_s), np.int64)
+    n_blocks = 0
+    for t, mt, ct, groups, phases in _spans(plan):
+        assert len(groups) and len(phases)
+        seen[t, mt, ct, groups.start:groups.stop,
+             phases.start:phases.stop] += 1
+        n_blocks += 1
+    assert n_blocks == plan.blocks
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("which", ["dispatch", "calibration"])
+def test_launch_plan_on_main_path_shapes(main_path, which):
+    params, tiles, mvm = main_path
+    shapes = sorted(set(tiles if which == "dispatch" else mvm))
+    assert len(shapes) >= 10
+    for shape in shapes:
+        plan = kernel.plan_launch(params, *shape)
+        assert plan.route == "mma"
+        _check_plan(plan)
+        tiles_only = plan.t * plan.m_tiles * plan.c_tiles
+        if tiles_only >= kernel.TARGET_BLOCKS:      # no split needed
+            assert plan.group_splits == plan.phase_splits == 1, shape
+        else:
+            assert plan.blocks >= min(kernel.TARGET_BLOCKS, tiles_only
+                                      * plan.n_groups * plan.n_p), shape
+        if shape[1] in (4 * 49, 49) and shape[2] >= 2304:
+            # layer 4's 3x3 convolutions (7x7 outputs): a full card even
+            # with 16-32 output tiles
+            assert plan.blocks >= kernel.SM_COUNT, (shape, plan.grid)
+
+
+def test_launch_plan_on_sweep_and_test_params():
+    cases = [c for c in _chip_smoke()._sweep()] + [
+        (*shape, p) for shape in SHAPES for p in PARAMS]
+    for t, m, r, c, p in cases:
+        plan = kernel.plan_launch(p, t, m, r, c)
+        assert plan.route == ("cuda_core" if kernel.operand_dtype(p)
+                              == torch.int32 else "mma")
+        _check_plan(plan)
+
+
+def test_launch_plan_split_policy():
+    jia = CimMvmParams(8, 8, 1, 1, 1152, 8)
+    # layer 4: 16 output tiles, every group and phase its own block
+    plan = kernel.plan_launch(jia, 1, 196, 4608, 128)
+    assert plan.grid == (16, 32, 1) and plan.group_splits == 4
+    # the tiles alone fill the card: no split, one atomic add per output
+    plan = kernel.plan_launch(jia, 1, 12544, 576, 64)
+    assert plan.grid == (392, 1, 1)
+    # phases split before groups when both would do
+    plan = kernel.plan_launch(jia, 1, 784, 2304, 256)
+    assert plan.group_splits == 1 and plan.phase_splits > 1
+    # int32 operands: the CUDA-core kernel, never split
+    plan = kernel.plan_launch(CimMvmParams(8, 8, 3, 2, 16, 7), 2, 9, 100, 13)
+    assert plan.route == "cuda_core" and plan.grid == (1, 1, 2)
+    assert plan.group_splits == plan.phase_splits == 1
+
+
 # ------------------------------------------------------------- on the card
 
 @pytest.fixture
@@ -232,17 +345,24 @@ def card():
 @pytest.mark.parametrize("p", PARAMS, ids=_pid)
 def test_cuda_kernel_matches_plain_version(card, p):
     before = kernel.LAUNCHES["cim_mvm_tiles"]
-    shapes = SHAPES + [(1, 300, 1152, 128), (2, 70, 700, 65)]
+    shapes = SHAPES + [
+        (1, 300, 1152, 128), (2, 70, 700, 65),
+        (1, 4, 512, 488), (2, 5, 600, 37),   # M < 16, C % 8 != 0
+        (1, 196, 4608, 128),                 # most atomic adds on jia
+        (1, 4500, 600, 128),                 # an unsplit plan
+    ]
     for shape in shapes:
         x, w = _operands(shape, p, seed=sum(shape))
         xt, wt = torch.from_numpy(x).to(card), torch.from_numpy(w).to(card)
         got = cim_mvm_tiles(xt, wt, p, mode="compiled")
+        again = cim_mvm_tiles(xt, wt, p, mode="compiled")
         want = cim_mvm_tiles(xt, wt, p, mode="torch")
         torch.cuda.synchronize()
         assert torch.equal(got, want), (shape, p)
+        assert torch.equal(got, again), (shape, p)     # order-independent
         assert torch.equal(cim_mvm(xt[0], wt[0], p),
                            cim_mvm(xt[0], wt[0], p, mode="torch"))
-    assert kernel.LAUNCHES["cim_mvm_tiles"] == before + len(shapes)
+    assert kernel.LAUNCHES["cim_mvm_tiles"] == before + 2 * len(shapes)
 
 
 @pytest.mark.cuda
