@@ -33,11 +33,36 @@ Drives ``repro_torch`` only — it imports neither JAX nor ``repro``:
 4. **Exact path.**  ResNet-18@224 on ``isaac-baseline`` (exact ADC: the
    split-plane float32 GEMM, no kernel) serves 4 requests on the card;
    the outputs must equal the port's on the CPU (a TF32 guard).
+5. **Faults.**  ResNet-18@224 on ``puma`` (crossbar mode, 128x128
+   crossbars, 1-bit ADC: every crossbar MVM saturates and runs the
+   kernel; 29 segments, so the weights stream) under a seeded
+   ``FaultMap`` with every fault class on.  (``jia-issc21`` is a core-mode
+   chip whose reads span several crossbars, which a per-crossbar fault
+   map cannot describe; ``FaultMap`` refuses it.)  (a) The faulted
+   executor on the kernel equals the same executor on the plain route
+   bit for bit, differs from the clean run, and times a faulted against
+   a clean dispatch; (b) at 32x32 input the faulted op-by-op interpreter
+   equals the faulted executor; (c) ``fault_aware_compile`` at 224 on a
+   line-clustered map (stuck and dead bitlines, ADC offsets) and
+   ``accuracy_under_faults`` with 4 inputs, unmitigated and remapped
+   (remapped must be 1.0); prints retired lines, attempts and the host
+   seconds spent materialising fault fields, compiling and dispatching.
+6. **Fleet.**  A ``CimCluster`` of two ``jia-issc21`` chips serves
+   ResNet-18@224 and ``tiny_cnn`` from a seeded synthetic trace of 48
+   requests on the wall clock; one chip is killed midway while a request
+   waits in its queue.  No accepted request may be lost, and every
+   output must equal a standalone ``CimBatchService`` of its tenant on
+   each sub-arch the tenant was placed on (same weights and shifts);
+   prints per-tenant p50/p99 latency, throughput before and after the
+   kill and the evacuated requests.
 
-Prints one ``{"kernels": [...]}`` JSON line and the ``nvidia-smi`` line
-before the last line, which is ``{"ok": true, "device": {...}}``.  Any
-failure raises and exits non-zero without that line; so does a machine
-without a CUDA device.
+Launch counts are set to 0 just before each of phases 3, 5 and 6 and
+read just after; each must have launched ``cim_mvm_tiles`` and
+``cim_mvm``.  Prints one ``{"kernels": [...]}`` JSON line (``launches``
+is phase 3's count, ``launches_by_path`` every phase's) and the
+``nvidia-smi`` line before the last line, which is ``{"ok": true,
+"device": {...}}``.  Any failure raises and exits non-zero without that
+line; so does a machine without a CUDA device.
 """
 from __future__ import annotations
 
@@ -56,6 +81,19 @@ HW = 224                      # ResNet-18's published input width
 BATCH = 4
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor-core rate
+FAULT_ARCH = "puma"           # the saturating crossbar-mode preset
+FAULT_HW = 32                 # input width of the interpreter check
+#: every fault class on (phase 5 a/b)
+EVERY_FAULT = dict(seed=0, stuck_cell_rate=1e-3, stuck_col_rate=0.01,
+                   dead_row_rate=1e-3, dead_col_rate=1e-3, drift_sigma=0.5,
+                   adc_offset_sigma=1.0)
+#: the line-clustered faults that retirement can clear (phase 5 c):
+#: stuck cells and drift are spread over every line, and a retired row
+#: would move the 1-bit ADC's row groups, so neither is remappable
+LINE_FAULTS = dict(seed=0, stuck_col_rate=0.01, dead_col_rate=1e-3,
+                   adc_offset_sigma=1.0)
+FLEET_REQUESTS = 48
+FLEET_TRACE_S = 6.0           # wall seconds the trace's arrivals span
 
 
 def gpu_line() -> str:
@@ -160,6 +198,39 @@ def _operands(rng, t, m, r, c, p, dev):
     return torch.from_numpy(x).to(dev), torch.from_numpy(w).to(dev)
 
 
+def _plain_kwargs(params) -> dict:
+    """``params`` as the plain version's keyword arguments."""
+    return dict(act_bits=params.act_bits, weight_bits=params.weight_bits,
+                dac_bits=params.dac_bits, cell_bits=params.cell_bits,
+                parallel_row=params.parallel_row, adc_bits=params.adc_bits)
+
+
+def time_forward(shapes, params):
+    """(kernel ms, plain ms, bound ms, bound_by) of one forward's
+    ``cim_mvm_tiles`` launches at ``shapes``, on seeded operands."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.cim_mvm import kernel, ref
+    dtype = kernel.operand_dtype(params)
+    rng = np.random.default_rng(20261017)
+    ops = [tuple(a.to(dtype).contiguous() for a in
+                 _operands(rng, t, m, r, c, params, DEV))
+           for t, m, r, c in shapes]
+    kw = _plain_kwargs(params)
+
+    def run_kernel():
+        for x, w in ops:
+            kernel.cim_mvm_tiles_cuda(x, w, params)
+
+    def run_plain():
+        for x, w in ops:
+            ref.cim_mvm_ref_tiles(x, w, **kw)
+
+    bms, bound_by = bound_ms(shapes, params,
+                             torch.tensor([], dtype=dtype).element_size())
+    return timed_ms(run_kernel), timed_ms(run_plain), bms, bound_by
+
+
 def plane_gemm(shapes, params, dev):
     """A cuBLAS int8 yardstick: for each (T, M, R, C) launch, T products
     ``torch._int_mm`` of (P*M, R) 0/1 planes by (R, S*C) 0/1 planes, padded
@@ -251,9 +322,7 @@ def phase_kernels(tiles_shapes, mvm_shapes, params):
     # times at the main path's shapes: one batch-4 forward's dispatches
     # (cim_mvm_tiles) and one calibration pass's MVMs (cim_mvm)
     dtype = kernel.operand_dtype(params)
-    kw = dict(act_bits=params.act_bits, weight_bits=params.weight_bits,
-              dac_bits=params.dac_bits, cell_bits=params.cell_bits,
-              parallel_row=params.parallel_row, adc_bits=params.adc_bits)
+    kw = _plain_kwargs(params)
     rows = {}
     for name, shapes in (("cim_mvm_tiles", tiles_shapes),
                          ("cim_mvm", [(1, m, r, c) for m, r, c in
@@ -496,6 +565,269 @@ def phase_exact(graph, arch):
           f"s, CPU batch {out['cpu'][0].latency_s:.4f} s")
 
 
+def _run_timed(exe, batched, packed, shifts):
+    """(outputs, wall seconds) of one executor pass; copying the outputs
+    to the host synchronises."""
+    t0 = time.perf_counter()
+    out = exe.run_batch(batched, packed=packed, shifts=shifts)
+    return out, time.perf_counter() - t0
+
+
+def phase_faults():
+    """Phase 5; returns the launch counts of its run and the faulted
+    forward's kernel times."""
+    import numpy as np
+    from repro_torch.cimsim.executor import lower
+    from repro_torch.cimsim.faults import (FaultMap, FaultModel,
+                                           accuracy_under_faults,
+                                           fault_aware_compile, plan_spans)
+    from repro_torch.cimsim.functional import (FunctionalSimulator,
+                                               calibrate_shifts, make_input,
+                                               make_weights)
+    from repro_torch.core import compiler
+    from repro_torch.core.abstraction import get_arch
+    from repro_torch.kernels.cim_mvm import cim_mvm_params, kernel
+    from repro_torch.workloads import resnet18
+
+    t_phase = time.perf_counter()
+    kernel.reset_launch_counts()
+    arch = get_arch(FAULT_ARCH)
+    params = cim_mvm_params(arch)
+    model = FaultModel(**EVERY_FAULT)
+    graph = resnet18(in_hw=HW)
+    out = graph.outputs[0]
+    weights = make_weights(graph, 0)
+    inputs = [make_input(graph, i) for i in range(BATCH)]
+    batched = {k: np.stack([x[k] for x in inputs]) for k in graph.inputs}
+    shifts = calibrate_shifts(graph, weights, inputs[0], params, device=DEV)
+    res = compiler.compile_graph(graph, arch)
+
+    # (a) the faulted forward: kernel vs plain route, faulted vs clean
+    fm = FaultMap(model, arch)
+    t0 = time.perf_counter()
+    spans = plan_spans(res.plan, res.program)
+    for name, node_spans in spans.items():
+        for span in node_spans:
+            fm.span_deficit(name, span)          # materialises the field
+    materialise_s = time.perf_counter() - t0
+    n_spans = sum(len(v) for v in spans.values())
+    exes = {(route, tag): lower(res.plan, res.program, params=params,
+                                mode=route, device=DEV, cache=False,
+                                faults=fm if tag == "faulted" else None)
+            for route in ("compiled", "torch")
+            for tag in ("faulted", "clean")}
+    stats = exes[("compiled", "faulted")].stats
+    assert stats.streamed and stats.matmul_nodes == 0, stats
+    packed = {k: e.pack(weights) for k, e in exes.items()}
+    outs = {k: _run_timed(e, batched, packed[k], shifts)[0]
+            for k, e in exes.items()}
+    np.testing.assert_array_equal(outs[("compiled", "faulted")][out],
+                                  outs[("torch", "faulted")][out])
+    np.testing.assert_array_equal(outs[("compiled", "clean")][out],
+                                  outs[("torch", "clean")][out])
+    y = outs[("compiled", "faulted")][out]
+    assert y.shape == (BATCH, 1000) and -128 <= y.min() and y.max() <= 127
+    changed = int((y != outs[("compiled", "clean")][out]).any(axis=1).sum())
+    assert changed >= 1, "the fault map left every output untouched"
+    times = {"clean": [], "faulted": []}
+    for tag in ("clean", "faulted", "faulted", "clean") * 4:
+        key = ("compiled", tag)
+        times[tag].append(_run_timed(exes[key], batched, packed[key],
+                                     shifts)[1])
+    plain = {tag: _run_timed(exes[("torch", tag)], batched,
+                             packed[("torch", tag)], shifts)[1]
+             for tag in ("clean", "faulted")}
+    print(f"[faults] {graph.name}@{HW} on {arch.name}: {stats}")
+    print(f"[faults] (a) {n_spans} spans; fault fields materialised in "
+          f"{materialise_s:.3f} s; {BATCH} faulted outputs bit-equal "
+          f"kernel vs plain, {changed} of {BATCH} differ from the clean "
+          "run; dispatch s on the kernel, clean "
+          + ", ".join(f"{t:.4f}" for t in times["clean"]) + "; faulted "
+          + ", ".join(f"{t:.4f}" for t in times["faulted"])
+          + f" (medians {np.median(times['clean']):.4f} and "
+          f"{np.median(times['faulted']):.4f}); plain route clean "
+          f"{plain['clean']:.4f}, faulted {plain['faulted']:.4f}")
+
+    # (b) interpreter == executor under the same map, at FAULT_HW
+    small = resnet18(in_hw=FAULT_HW)
+    w_small = make_weights(small, 0)
+    x_small = make_input(small, 0)
+    s_small = calibrate_shifts(small, w_small, x_small, params, device=DEV)
+    res_x = compiler.compile_graph(small, arch, expand=True)
+    t0 = time.perf_counter()
+    sim = FunctionalSimulator(res_x.plan, res_x.program, w_small, s_small,
+                              params=params, device=DEV,
+                              faults=FaultMap(model, arch))
+    interp = sim.run(x_small)
+    interp_s = time.perf_counter() - t0
+    res_s = compiler.compile_graph(small, arch)
+    exe_s = lower(res_s.plan, res_s.program, params=params, device=DEV,
+                  cache=False, faults=FaultMap(model, arch))
+    np.testing.assert_array_equal(interp[out],
+                                  exe_s.run(x_small, w_small, s_small)[out])
+    print(f"[faults] (b) {small.name}@{FAULT_HW}: the faulted interpreter "
+          f"({sim.stats.cim_reads} crossbar reads, {interp_s:.3f} s) equals "
+          "the faulted executor")
+
+    # (c) fault-aware compile and top-1 under faults
+    lines = FaultModel(**LINE_FAULTS)
+    t0 = time.perf_counter()
+    fc = fault_aware_compile(graph, arch, lines)
+    compile_s = time.perf_counter() - t0
+    acc = {}
+    for remap in (False, True):
+        t0 = time.perf_counter()
+        acc[remap] = accuracy_under_faults(graph, arch, lines,
+                                           n_inputs=BATCH, remap=remap,
+                                           device=DEV)
+        acc[f"{remap}_s"] = time.perf_counter() - t0
+    print(f"[faults] (c) fault_aware_compile: {fc.retired_rows} rows and "
+          f"{fc.retired_cols} bitlines retired in {fc.attempts} attempts, "
+          f"{compile_s:.3f} s; top-1 agreement over {BATCH} inputs: "
+          f"unmitigated {acc[False]} ({acc['False_s']:.3f} s), remapped "
+          f"{acc[True]} ({acc['True_s']:.3f} s)")
+    assert acc[True] == 1.0, acc
+    launches = dict(kernel.LAUNCHES)
+    # the faulted forward's launches timed alone with CUDA events (not
+    # counted: the phase's launches were read above)
+    ms, plain_ms, bms, bound_by = time_forward(
+        exes[("compiled", "faulted")].dispatch_shapes(BATCH), params)
+    print(f"[faults] cim_mvm_tiles on {arch.name}, {stats.dispatches} "
+          f"launches a forward: {ms:.3f} ms kernel, {plain_ms:.3f} ms "
+          f"plain, {bms:.4f} ms bound ({bound_by})")
+    print(f"[faults] host seconds: materialising fault fields "
+          f"{materialise_s:.3f}, fault-aware compile {compile_s:.3f}, "
+          f"faulted dispatch {min(times['faulted']):.4f} (clean "
+          f"{min(times['clean']):.4f}); launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    assert launches["cim_mvm_tiles"] >= 2 * stats.dispatches, launches
+    assert launches["cim_mvm"] > 0, launches
+    return launches, {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                      "bound_by": bound_by, "shapes": stats.dispatches}
+
+
+def phase_fleet(graph):
+    """Phase 6; returns the launch counts of its run."""
+    import numpy as np
+    from repro_torch.cimsim.functional import make_input
+    from repro_torch.core.abstraction import get_arch
+    from repro_torch.kernels.cim_mvm import kernel
+    from repro_torch.serving import (ChipFault, CimBatchService,
+                                     CimCluster, CimRequest, FaultSchedule,
+                                     TenantSpec, TraceRecorder,
+                                     TrafficModel, synthetic_trace)
+    from repro_torch.serving.common import percentile
+    from repro_torch.workloads import tiny_cnn
+
+    t_phase = time.perf_counter()
+    jia = get_arch("jia-issc21")
+    chips = {c: jia.subarch(jia.chip.n_cores, c) for c in ("jia-a", "jia-b")}
+    graphs = {"resnet18": graph, "tiny_cnn": tiny_cnn()}
+    trace = synthetic_trace(
+        graphs, FLEET_REQUESTS, FLEET_TRACE_S,
+        shares={"resnet18": 1.0, "tiny_cnn": 1.0},
+        model=TrafficModel(diurnal_amp=0.0, bursts_per_day=0.0), seed=0)
+    # the kill fires 5 ms after the first tiny_cnn arrival past midway:
+    # that request waits max_wait_s (20 ms) on jia-b, and the next step
+    # or admission applies due faults before it releases a batch, so it
+    # is always evacuated
+    mid = next(r for r in trace[len(trace) // 2:] if r.model == "tiny_cnn")
+    kill_at = mid.arrival_s + 0.005
+    kernel.reset_launch_counts()
+    tr = TraceRecorder()
+    cluster = CimCluster(
+        [TenantSpec(n, g) for n, g in graphs.items()], chips, seed=0,
+        max_wait_s=0.02, trace=tr, device=DEV,
+        faults=FaultSchedule([ChipFault(at_s=kill_at, chip="jia-b")]))
+    plans = [cluster.plan]
+    for fleet in cluster.fleets.values():        # warm every bucket shape
+        for name, engine in fleet.pool.items():
+            x = [CimRequest(rid=-1, inputs=make_input(graphs[name], 0))]
+            for b in cluster.buckets:
+                engine.serve_padded(x, b)
+    setup_s = time.perf_counter() - t_phase
+
+    done_at = []                                  # (clock s, completed)
+    t0 = time.monotonic()
+
+    def clock():
+        return time.monotonic() - t0
+
+    def step():
+        n = len(cluster.step(now=clock()))
+        if n:
+            done_at.append((clock(), n))
+        return n
+
+    # open loop: a request is stamped with its trace arrival, so its
+    # latency includes any time the host was too busy to admit it
+    for r in trace:
+        while clock() < r.arrival_s:
+            if not step():
+                time.sleep(2e-4)
+        cluster.submit_request(r, now=r.arrival_s)
+        if cluster.plan is not plans[-1]:
+            plans.append(cluster.plan)
+    while cluster.pending:
+        step()
+    end = clock()
+    launches = dict(kernel.LAUNCHES)
+    assert cluster.chip_kills == 1 and cluster.failed == {"jia-b"}, \
+        cluster.summary()
+    lost = [r.rid for r in trace if r.outputs is None]
+    assert not lost, f"accepted requests lost: {lost}"
+    assert launches["cim_mvm_tiles"] > 0 and launches["cim_mvm"] > 0, \
+        launches
+    evacuated = sum(e["args"]["evacuated"] for e in tr.events
+                    if e.get("name") == "chip_kill")
+    assert evacuated >= 1, "the kill found no queued request to evacuate"
+
+    # each served output against standalone services of its tenant on
+    # every sub-arch the tenant was placed on, same weights and shifts
+    checked = 0
+    for name, g in graphs.items():
+        mine = [r for r in trace if r.model == name]
+        engine = next(f.pool[name] for f in cluster.fleets.values()
+                      if name in f.pool)
+        views = {}
+        for plan in plans:
+            for tplan in plan.chips.values():
+                if name in tplan.tenants:
+                    sub = tplan.subarch(name)
+                    views[json.dumps(sub.to_dict(), sort_keys=True,
+                                     default=str)] = sub
+        for sub in views.values():
+            ref = CimBatchService(g, sub, max_batch=max(cluster.buckets),
+                                  weights=engine.weights,
+                                  shifts=engine.shifts, device=DEV)
+            refs = [CimRequest(rid=r.rid, inputs=r.inputs) for r in mine]
+            ref.serve(refs)
+            for a, b in zip(mine, refs):
+                for t in g.outputs:
+                    np.testing.assert_array_equal(a.outputs[t],
+                                                  b.outputs[t])
+                    checked += 1
+    before = sum(n for t, n in done_at if t < kill_at)
+    after = sum(n for t, n in done_at if t >= kill_at)
+    lat = {name: [r.latency_s for r in trace if r.model == name]
+           for name in graphs}
+    print(f"[fleet] plan before the kill: {plans[0].routes}; after: "
+          f"{cluster.plan.routes}")
+    print(f"[fleet] {len(trace)} requests over {end:.3f} s (set-up "
+          f"{setup_s:.3f} s), none lost; jia-b killed at {kill_at:.3f} s, "
+          f"{evacuated} queued requests evacuated; {checked} outputs "
+          "bit-equal to standalone services on every sub-arch of their "
+          "tenant")
+    print("[fleet] latency per tenant (p50 / p99 s): " + "; ".join(
+        f"{n}: {percentile(v, 50):.4f} / {percentile(v, 99):.4f} "
+        f"({len(v)} requests)" for n, v in lat.items()))
+    print(f"[fleet] throughput: {before / kill_at:.2f} requests/s before "
+          f"the kill, {after / max(end - kill_at, 1e-9):.2f} after; "
+          f"launches {launches}; phase {time.perf_counter() - t_phase:.1f}"
+          " s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -516,7 +848,15 @@ def main() -> int:
         row["launches"] = launches[name]
         assert row["launches"] > 0, f"{name} never launched on the main path"
 
+    t0 = time.perf_counter()
     phase_exact(resnet18(in_hw=HW), get_arch("isaac-baseline"))
+    print(f"[exact] phase {time.perf_counter() - t0:.1f} s")
+    fault_launches, puma_forward = phase_faults()
+    by_path = {"main": launches, "faults": fault_launches,
+               "fleet": phase_fleet(graph)}
+    for name, row in rows.items():
+        row["launches_by_path"] = {p: n[name] for p, n in by_path.items()}
+    rows["cim_mvm_tiles"]["puma_faulted_forward"] = puma_forward
 
     print(json.dumps({"kernels": [rows["cim_mvm_tiles"], rows["cim_mvm"]]}))
     print(gpu_line())

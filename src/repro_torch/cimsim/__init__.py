@@ -14,6 +14,11 @@ _EXPORTS = {
     "LoweredExecutable": ".executor",
     "LoweringError": ".executor",
     "lower": ".executor",
+    "FaultModel": ".faults",
+    "FaultMap": ".faults",
+    "FaultCompileResult": ".faults",
+    "fault_aware_compile": ".faults",
+    "accuracy_under_faults": ".faults",
 }
 
 __all__ = sorted(_EXPORTS)

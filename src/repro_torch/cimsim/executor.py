@@ -28,7 +28,12 @@ program over device tensors with the same bit-exact semantics:
     slots are rewritten at every segment boundary — each node reads its
     tiles from the pool as *its* segment left it, and the pool, not the
     sum of all segments' weights, is the crossbar working set.  It is
-    on exactly when ``len(plan.segments) > 1``.
+    on exactly when ``len(plan.segments) > 1``;
+  * **device faults fold in at lowering** (``faults=``, a
+    ``cimsim.faults.FaultMap``): each tile span's weight transform is
+    applied while packing, and the per-span post-MVM ADC offsets become
+    int32 device tensors, one per dispatch, added to its partial sums —
+    the same per-span functions the interpreter applies per read.
 
 The program runs eagerly in PyTorch; the per-dispatch index tensors
 (im2col and pooling gathers, tile row and column maps) are built on the
@@ -43,9 +48,9 @@ interpreter.
 
 Lowering is cached process-wide, keyed by the *content* of the compile
 (``compiler.compile_key_for_plan``) x the crossbar compute params x the
-route x the device.  Weights and requantization shifts are runtime
-inputs: the same executable serves any weight set (re-``pack``) and any
-shift table.
+route x the device x the fault map's identity (``FaultMap.token``).
+Weights and requantization shifts are runtime inputs: the same
+executable serves any weight set (re-``pack``) and any shift table.
 
 The interpreter remains the bit-exact oracle; tests sweep the executor
 against it across chip modes, saturating-ADC configs and batch sizes.
@@ -55,7 +60,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import OrderedDict
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -169,6 +174,14 @@ class _CimPlan:
     #: weight-row index of each tile and the concatenated column index
     dispatch_idx: List[Tuple[torch.Tensor, torch.Tensor]] = \
         dataclasses.field(default_factory=list)
+    #: per dispatch: the constant term of the offset-encoding correction
+    #: (``r_len * 2^(ab-1) * 2^(wb-1)``, an int), or with a fault map
+    #: whose offsets are not all zero that term plus its (T, 1, c_len)
+    #: post-MVM offsets — one add either way
+    dispatch_bias: List[Union[int, torch.Tensor]] = \
+        dataclasses.field(default_factory=list)
+    #: exact path: the fault map's (C,) post-MVM offsets, or None
+    exact_off: Optional[torch.Tensor] = None
 
 
 def _im2col_indices(cin: int, h: int, w: int, k: int, stride: int,
@@ -272,8 +285,12 @@ class LoweredExecutable:
                  params: Optional[CimMvmParams] = None, *,
                  mode: Optional[str] = None,
                  route: Optional[backend.KernelRoute] = None,
-                 device="cuda"):
+                 device="cuda", faults=None):
         self.device = backend.resolve_device(device)
+        #: optional cimsim.faults.FaultMap — tile weight transforms fold
+        #: into ``pack`` and the per-tile post-MVM ADC offsets become
+        #: device tensors built at lowering, one per dispatch
+        self.faults = faults
         # the exact-ADC path's split-plane float32 GEMM is exact only in
         # full float32; TF32 keeps 10 mantissa bits
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -451,6 +468,12 @@ class LoweredExecutable:
                                           for _, _, c0, c1 in g.spans])
                 cp.dispatch_idx.append((self._index(rows_idx),
                                         self._index(col_idx)))
+                bias = g.r_len * self._ox * self._ow
+                off = self._fault_offsets(node.name, g.spans)
+                cp.dispatch_bias.append(bias if off is None else off + bias)
+        elif self.faults is not None:
+            cp.exact_off = self._fault_offsets(node.name, spans,
+                                               total_c=total_c)
         if node.op_type == "Conv":
             cin, h, w = self.graph.shapes[node.inputs[0]]
             k = node.attrs["weight_shape"][2]
@@ -461,6 +484,57 @@ class LoweredExecutable:
             oh, ow = self.graph.shapes[node.outputs[0]][1:]
             cp.conv_out = (cout, oh, ow)
         return cp
+
+    # -- fault folding ----------------------------------------------------
+    def _fault_offsets(self, name: str, spans,
+                       total_c: Optional[int] = None
+                       ) -> Optional[torch.Tensor]:
+        """The fault map's post-MVM ADC offsets of tile ``spans`` as an
+        int32 device tensor, built once at lowering: a (T, 1, c_len)
+        stack matching the tile axis of one batched MVM, or with
+        ``total_c`` the exact path's (C,) aggregate (the spans partition
+        the matrix and each span's offset lands once per window row, so
+        columns sum over their row tiles).  ``None`` when every offset
+        is zero or no fault map is active.  The interpreter adds
+        ``tile_offset(name, span)`` to every span's partial sum; these
+        are the same vectors folded per dispatch."""
+        if self.faults is None:
+            return None
+        offs = [self.faults.tile_offset(name, s) for s in spans]
+        if all(o is None for o in offs):
+            return None
+        if total_c is not None:
+            off = np.zeros(total_c, np.int64)
+            for s, o in zip(spans, offs):
+                if o is not None:
+                    off[s[2]:s[3]] += o
+            return self._dev(off)
+        c_len = spans[0][3] - spans[0][2]
+        return self._dev(np.stack(
+            [np.zeros(c_len, np.int64) if o is None else o
+             for o in offs])[:, None, :])
+
+    def _tile(self, name: str, span: Tuple[int, int, int, int],
+              w: np.ndarray) -> np.ndarray:
+        """Tile ``span`` of node ``name``'s signed matrix ``w``, under the
+        fault map's weight transform when one is active."""
+        r0, r1, c0, c1 = span
+        if self.faults is None:
+            return w[r0:r1, c0:c1]
+        return self.faults.apply_tile(name, span, w[r0:r1, c0:c1])
+
+    def _encode(self, tiles: np.ndarray) -> np.ndarray:
+        """Offset-encode signed tiles for the crossbar (``w + 2^(wb-1)``).
+        Fault transforms keep weights in the signed ``weight_bits``
+        range, so the stored values still fit the kernel's operand type;
+        a value outside it raises instead of wrapping."""
+        w_u = tiles + self._ow
+        if w_u.size and (int(w_u.min()) < 0
+                         or int(w_u.max()) >= 2 * self._ow):
+            raise ValueError(
+                f"encoded crossbar tiles span [{int(w_u.min())}, "
+                f"{int(w_u.max())}], outside [0, {2 * self._ow - 1}]")
+        return w_u
 
     # -- weight packing ---------------------------------------------------
     def pack(self, weights: Dict[str, Any]) -> Dict[str, Any]:
@@ -519,10 +593,9 @@ class LoweredExecutable:
                 for (seg, key), layout in self._seg_layout.items():
                     if seg != si:
                         continue
-                    tiles = np.stack(
-                        [mats[name][r0:r1, c0:c1]
-                         for name, (r0, r1, c0, c1) in layout])
-                    entry[key] = self._dev(tiles + self._ow,   # unsigned
+                    tiles = np.stack([self._tile(name, span, mats[name])
+                                      for name, span in layout])
+                    entry[key] = self._dev(self._encode(tiles),
                                            self._op_dtype)
                 segs.append(entry)
                 self._seg_pack_s.append(time.perf_counter() - t_seg)
@@ -531,6 +604,16 @@ class LoweredExecutable:
         for name, cp in self._plans.items():
             w = mats[name]
             if cp.exact:
+                if self.faults is not None:
+                    # tile spans partition the matrix (coverage is
+                    # checked at lowering), so per-span surgery yields
+                    # the full effective matrix; values stay in the
+                    # signed weight range, keeping the split-plane GEMM
+                    # exact
+                    w = w.copy()
+                    for b in cp.buckets:
+                        for s in b.spans:
+                            w[s[0]:s[1], s[2]:s[3]] = self._tile(name, s, w)
                 if cp.r <= _F32_SPLIT_MAX_R and self.params.act_bits <= 8 \
                         and self.params.weight_bits <= 8:
                     # split-plane GEMM: w = 16*w_hi + w_lo with w_hi in
@@ -543,8 +626,8 @@ class LoweredExecutable:
                 continue
             entry: Dict[str, Any] = {}
             for b in cp.buckets:
-                w_u = np.stack([w[r0:r1, c0:c1]
-                                for r0, r1, c0, c1 in b.spans]) + self._ow
+                w_u = self._encode(np.stack([self._tile(name, s, w)
+                                             for s in b.spans]))
                 entry[b.key] = {
                     "w": self._dev(w_u, self._op_dtype),
                     "sw": self._dev(w_u.sum(axis=1, keepdims=True,
@@ -698,12 +781,15 @@ class LoweredExecutable:
                 # no int32 matrix product on CUDA; float64 is exact here,
                 # since lowering bounded every sum inside int32
                 acc = (rows.to(torch.float64) @ pw["w"]).to(torch.int32)
+            if cp.exact_off is not None:
+                acc = acc + cp.exact_off
         else:
             flat = (rows + self._ox).to(self._op_dtype).reshape(n * m, cp.r)
             acc = torch.zeros((n * m, cp.c), dtype=torch.int32,
                               device=self.device)
             groups = cp.stream_groups if self._stream else cp.buckets
-            for g, (rows_idx, col_idx) in zip(groups, cp.dispatch_idx):
+            for g, (rows_idx, col_idx), bias in zip(
+                    groups, cp.dispatch_idx, cp.dispatch_bias):
                 xt = flat[:, rows_idx].transpose(0, 1)   # (T, NM, r_len)
                 if self._stream:
                     # tiles come out of the pool as *this segment* left
@@ -716,8 +802,7 @@ class LoweredExecutable:
                 y_u = cim_mvm_tiles(xt, w_u, self.params,
                                     mode=self.route.mode)
                 sx = xt.sum(dim=-1, keepdim=True, dtype=torch.int32)
-                y = (y_u - self._ow * sx - self._ox * sw
-                     + g.r_len * self._ox * self._ow)
+                y = y_u - self._ow * sx - self._ox * sw + bias
                 acc.index_add_(1, col_idx,
                                y.transpose(0, 1).reshape(n * m, -1))
             acc = acc.reshape(n, m, cp.c)
@@ -822,17 +907,22 @@ def _packed_nbytes(obj: Any) -> int:
 def lower(plan: SchedulePlan, program: Program,
           params: Optional[CimMvmParams] = None, *,
           mode: Optional[str] = None,
-          device="cuda", cache: bool = True) -> LoweredExecutable:
+          device="cuda", faults=None,
+          cache: bool = True) -> LoweredExecutable:
     """Lower a compiled ``(plan, program)`` to a batched executable on
     ``device``.
 
     The MVM execution route is a backend-registry decision for that
     device (force with ``mode=``); multi-segment schedules stream
-    weight updates.
+    weight updates.  ``faults`` (a ``cimsim.faults.FaultMap``) folds
+    device faults into weight packing plus per-dispatch post-MVM
+    offsets.
 
     Cached process-wide by ``compile_key_for_plan(plan) x params x
-    resolved route x device``, so repeated lowerings of the same compile
-    config reuse the executable and its index tensors.
+    resolved route x device x fault-map identity``, so repeated
+    lowerings of the same compile config reuse the executable and its
+    index tensors, and a clean caller never gets a faulted executable
+    (or the reverse).
     """
     from ..core import compiler
     dev = backend.resolve_device(device)
@@ -842,14 +932,15 @@ def lower(plan: SchedulePlan, program: Program,
     key = None
     if cache:
         key = (compiler.compile_key_for_plan(plan), params, route.mode,
-               str(dev))
+               str(dev), None if faults is None else faults.token)
         hit = _LOWER_CACHE.get(key)
         if hit is not None:
             _LOWER_CACHE.move_to_end(key)
             obs_metrics.count("executor_lower_cache_hits_total")
             return hit
     t0 = time.perf_counter()
-    exe = LoweredExecutable(plan, program, params, route=route, device=dev)
+    exe = LoweredExecutable(plan, program, params, route=route, device=dev,
+                            faults=faults)
     dt = time.perf_counter() - t0
     obs_metrics.count("executor_lowerings_total")
     obs_metrics.observe("executor_lower_s", dt)

@@ -388,7 +388,7 @@ class FunctionalSimulator:
                  weights: Dict[str, np.ndarray],
                  shifts: Dict[str, int],
                  params: Optional[CimMvmParams] = None,
-                 device="cuda"):
+                 device="cuda", faults=None):
         self.plan = plan
         self.graph: Graph = plan.graph
         self.arch: CIMArch = plan.arch
@@ -397,6 +397,10 @@ class FunctionalSimulator:
         self.shifts = shifts
         self.params = params or cim_mvm_params(plan.arch)
         self.device = resolve_device(device)
+        #: optional cimsim.faults.FaultMap — every crossbar read applies
+        #: its tile's weight transform + post-MVM offset (the executor
+        #: applies the identical per-span functions; see faults.py)
+        self.faults = faults
         self.stats = SimStats()
         self._placement: Dict[Tuple[str, int], OpPlacement] = {}
         for p in plan.placements:
@@ -412,6 +416,15 @@ class FunctionalSimulator:
         if parallel_row is not None:
             p = dataclasses.replace(p, parallel_row=parallel_row)
         return signed_oracle_mvm(x_rows, w, p, self.device)
+
+    def _faulted(self, name: str, span: Tuple[int, int, int, int],
+                 wsub: np.ndarray):
+        """(effective weights, post-MVM offset or None) of one tile span
+        under the active fault map — identity without one."""
+        if self.faults is None:
+            return wsub, None
+        return (self.faults.apply_tile(name, span, wsub),
+                self.faults.tile_offset(name, span))
 
     # -- tensor store -----------------------------------------------------
     def _tensor(self, name: str) -> np.ndarray:
@@ -515,7 +528,11 @@ class FunctionalSimulator:
         w = self.weights[node.name]
         ro, co = self._chunk_offsets(node, p)
         wsub = w[ro:ro + p.mapping.r, co:co + p.mapping.c]
+        span = (ro, ro + wsub.shape[0], co, co + wsub.shape[1])
+        wsub, off = self._faulted(node.name, span, wsub)
         y = self._cim_mvm(rows[idx][:, ro:ro + p.mapping.r], wsub)
+        if off is not None:
+            y = y + off[None, :]
         acc[np.ix_(idx, np.arange(co, co + wsub.shape[1]))] += y
 
     def _read_tile(self, a: Dict, wlm: bool) -> None:
@@ -548,7 +565,11 @@ class FunctionalSimulator:
             s0, s1 = span
             wsub = wsub[s0:s1]
             xr0, xr1 = xr0 + s0, xr0 + (s1 - s0) + s0
+        fspan = (xr0, xr1, co + c0, co + c0 + wsub.shape[1])
+        wsub, off = self._faulted(node.name, fspan, wsub)
         y = self._cim_mvm(rows[windows][:, xr0:xr1], wsub)
+        if off is not None:
+            y = y + off[None, :]
         cols = np.arange(co + c0, co + c0 + wsub.shape[1])
         acc[np.ix_(windows, cols)] += y
 
@@ -567,13 +588,16 @@ def calibrate_shifts(graph: Graph, weights: Dict[str, np.ndarray],
 
 def simulate(graph: Graph, arch: CIMArch, *, level=None, seed: int = 0,
              params: Optional[CimMvmParams] = None,
-             use_executor: bool = False, device="cuda"):
+             use_executor: bool = False, device="cuda", faults=None):
     """Compile ``graph`` for ``arch``, run the reference, execute the
     meta-op flow, and return (sim_outputs, ref_outputs, stats).
 
     ``use_executor=True`` runs the trace-lowered batched executor
     (cimsim.executor) instead of the op-by-op interpreter — same
     semantics, one batched program (stats are then lowering stats).
+    ``faults`` (a ``cimsim.faults.FaultMap``) injects device faults into
+    the simulated crossbars; the reference outputs stay fault-free, so
+    the pair measures fault-induced degradation.
     """
     from ..core import compiler
     dev = resolve_device(device)
@@ -588,13 +612,14 @@ def simulate(graph: Graph, arch: CIMArch, *, level=None, seed: int = 0,
     if use_executor:
         from .executor import lower
         res = compiler.compile_graph(graph, arch, level=level)
-        exe = lower(res.plan, res.program, params=p, device=dev)
+        exe = lower(res.plan, res.program, params=p, device=dev,
+                    faults=faults)
         sim_out = exe.run(inputs, weights, shifts)
         stats = exe.stats
     else:
         res = compiler.compile_graph(graph, arch, level=level, expand=True)
         sim = FunctionalSimulator(res.plan, res.program, weights, shifts,
-                                  params=p, device=dev)
+                                  params=p, device=dev, faults=faults)
         sim_out = sim.run(inputs)
         stats = sim.stats
     return sim_out, {t: ref_out[t] for t in graph.outputs}, stats
@@ -624,7 +649,7 @@ def compile_and_verify(graph: Graph, arch: CIMArch, *, level=None,
                        seed: int = 0, batch: int = 1,
                        params: Optional[CimMvmParams] = None,
                        use_executor: bool = True, device="cuda",
-                       **compile_kwargs) -> VerifyReport:
+                       faults=None, **compile_kwargs) -> VerifyReport:
     """Compile ``graph`` for ``arch`` and verify the emitted flow against
     the int8 fake-quant reference on ``batch`` random inputs.
 
@@ -633,8 +658,11 @@ def compile_and_verify(graph: Graph, arch: CIMArch, *, level=None,
     flow the executor cannot lower bit-exactly (``LoweringError``)
     falls back to op-by-op interpretation, as does
     ``use_executor=False``.  Extra keyword arguments (``use_pipeline``,
-    ``binding``, ...) reach ``compile_graph``, so any DSE design point
-    can be verified.
+    ``binding``, ``cache``, ...) reach ``compile_graph``, so any DSE
+    design point can be verified.  With ``faults`` set the simulated
+    crossbars carry the fault map while the reference stays clean, so
+    ``max_abs_err`` measures fault-induced deviation (``ok`` then means
+    the faults were numerically invisible).
     """
     import time
     from ..core import compiler
@@ -654,7 +682,8 @@ def compile_and_verify(graph: Graph, arch: CIMArch, *, level=None,
                                      **compile_kwargs)
         try:
             t0 = time.time()
-            exe = lower(res.plan, res.program, params=p, device=dev)
+            exe = lower(res.plan, res.program, params=p, device=dev,
+                        faults=faults)
             packed = exe.pack(weights)
             t1 = time.time()
             batched = {name: np.stack([x[name] for x in inputs])
@@ -675,7 +704,7 @@ def compile_and_verify(graph: Graph, arch: CIMArch, *, level=None,
     res = compiler.compile_graph(graph, arch, level=level, expand=True,
                                  **compile_kwargs)
     sim = FunctionalSimulator(res.plan, res.program, weights, shifts,
-                              params=p, device=dev)
+                              params=p, device=dev, faults=faults)
     t0 = time.time()
     for i, x in enumerate(inputs):
         out = sim.run(x)

@@ -162,6 +162,8 @@ def resolve(kernel: str, mode: Optional[str] = None, *, device=None,
             platform: Optional[str] = None) -> KernelRoute:
     """Decide how ``kernel`` runs for tensors on ``device`` (or on the
     named ``platform``, which resolution-only callers may pass instead).
+    Without either, the device is the card, as for every entry point
+    (``resolve_device``).
 
     Auto policy: ``compiled`` where the platform has the kernel, the
     plain version on the CPU, and an error on a CUDA device without the
@@ -171,9 +173,9 @@ def resolve(kernel: str, mode: Optional[str] = None, *, device=None,
     if kernel not in REGISTRY:
         raise KeyError(f"unknown kernel {kernel!r}; "
                        f"registered: {sorted(REGISTRY)}")
-    if platform is None:
-        platform = detect_platform("cpu" if device is None else device)
     want = _requested_mode(kernel, mode)
+    if platform is None:
+        platform = detect_platform(resolve_device(device))
     avail = REGISTRY[kernel].modes_on(platform)
     if want == AUTO:
         if "compiled" in avail:

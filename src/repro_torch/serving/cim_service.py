@@ -14,9 +14,14 @@ A genuine ``LoweringError`` (a flow the executor cannot lower
 bit-exactly) falls back to the interpreter, which runs the kernel too;
 route, build and launch errors propagate.
 
-Units and clocks: ``dispatch`` returns **wall-clock seconds**
-(``time.time()`` around the device pass, which ends when the outputs
-reach the host); the compiled plan's latency/energy estimates
+Request/stats shapes live in ``serving.common`` (shared with the
+multi-tenant fleet); ``serve_padded`` is the fleet batcher's entry
+point — it pads a partial batch up to a bucket size by repeating the
+last row, so every ragged queue drain of a bucket runs one batch shape.
+
+Units and clocks: ``dispatch``/``serve_padded`` return **wall-clock
+seconds** (``time.time()`` around the device pass, which ends when the
+outputs reach the host); the compiled plan's latency/energy estimates
 are **compiler cycles/pJ** and never mix into serve times.
 Thread-safety: ``stats`` and the warm-shape set are plain mutable state —
 one service instance per serving thread.
@@ -46,7 +51,10 @@ class CimBatchService:
 
     ``mode`` forces the executor's crossbar-MVM route (``"compiled"`` or
     ``"torch"``); by default the registry picks it for ``device``.
-    ``compile_kwargs`` carries compiler knob overrides (binding /
+    ``cache`` (a compile cache with ``get``/``put``, see
+    ``core.compiler``) warm-loads the compiled plan instead of
+    recompiling; the fleet's engine pool hands every tenant the same
+    one.  ``compile_kwargs`` carries compiler knob overrides (binding /
     use_pipeline / use_duplication); ``level`` stays a convenience alias
     for the common single-knob case.
     """
@@ -59,6 +67,7 @@ class CimBatchService:
                  use_executor: bool = True,
                  mode: Optional[str] = None,
                  device="cuda",
+                 cache=None,
                  compile_kwargs: Optional[Dict] = None):
         from ..cimsim.functional import (calibrate_shifts, make_input,
                                          make_weights)
@@ -79,7 +88,7 @@ class CimBatchService:
         kwargs.setdefault("level", level)
         if use_executor:
             from ..cimsim.executor import LoweringError, lower
-            res = compiler.compile_graph(graph, arch, **kwargs)
+            res = compiler.compile_graph(graph, arch, cache=cache, **kwargs)
             try:
                 self._exe = lower(res.plan, res.program, params=self.params,
                                   mode=mode, device=self.device)
@@ -89,7 +98,8 @@ class CimBatchService:
                 self.use_executor = use_executor = False
         if not use_executor:
             from ..cimsim.functional import FunctionalSimulator
-            res = compiler.compile_graph(graph, arch, expand=True, **kwargs)
+            res = compiler.compile_graph(graph, arch, cache=cache,
+                                         expand=True, **kwargs)
             self._sim = FunctionalSimulator(res.plan, res.program,
                                             self.weights, self.shifts,
                                             params=self.params,
@@ -120,27 +130,44 @@ class CimBatchService:
             done.extend(batch)
         return done
 
-    def dispatch(self, batch: List[CimRequest]) -> float:
-        """Serve one batch (warm-once per shape), return the wall time."""
+    def serve_padded(self, batch: List[CimRequest],
+                     bucket: Optional[int] = None) -> float:
+        """One bucket-shaped dispatch for ``len(batch) <= bucket``
+        requests; returns the wall time.  The fleet batcher's entry
+        point.  Fills ``outputs`` but leaves latency/stats accounting to
+        the caller (the fleet adds queue wait before recording)."""
+        return self.dispatch(batch, pad_to=bucket)
+
+    def dispatch(self, batch: List[CimRequest],
+                 pad_to: Optional[int] = None) -> float:
+        """Serve one batch (warm-once per shape), return the wall time.
+        ``pad_to`` pads the batch to that many rows by repeating the
+        last one (the interpreter serves requests one by one and ignores
+        it)."""
         if not batch:
             return 0.0
-        if self.use_executor and len(batch) not in self._warmed:
-            self._serve_batch(batch)
-            self._warmed.add(len(batch))
+        shape = pad_to if (pad_to and self.use_executor) else len(batch)
+        if self.use_executor and shape not in self._warmed:
+            self._serve_batch(batch, pad_to=pad_to)
+            self._warmed.add(shape)
         t0 = time.time()
-        self._serve_batch(batch)
+        self._serve_batch(batch, pad_to=pad_to)
         return time.time() - t0
 
-    def _serve_batch(self, batch: List[CimRequest]) -> None:
+    def _serve_batch(self, batch: List[CimRequest],
+                     pad_to: Optional[int] = None) -> None:
         if not self.use_executor:
             for r in batch:
                 out = self._sim.run({k: np.asarray(v)
                                      for k, v in r.inputs.items()})
                 r.outputs = {t: np.asarray(out[t]) for t in self.graph.outputs}
             return
-        stacked = {name: np.stack([np.asarray(r.inputs[name])
-                                   for r in batch])
-                   for name in self.graph.inputs}
+        pad = max(0, (pad_to or len(batch)) - len(batch))
+        stacked = {}
+        for name in self.graph.inputs:
+            rows = [np.asarray(r.inputs[name]) for r in batch]
+            rows += [rows[-1]] * pad      # pad-to-bucket: repeat last row
+            stacked[name] = np.stack(rows)
         outs = self._exe.run_batch(stacked, packed=self._packed,
                                    shifts=self.shifts)
         for i, r in enumerate(batch):

@@ -252,3 +252,17 @@ def test_compile_and_verify_falls_back_on_lowering_error(monkeypatch):
     rep = tfn.compile_and_verify(twl("tiny_mlp"), _arch(ta, "exact"),
                                  batch=2, device="cpu")
     assert rep.ok and rep.lower_s == 0.0    # interpreter path was used
+
+
+@pytest.mark.parametrize("kind", ["saturating", "streamed"])
+def test_pack_rejects_weights_outside_the_encoded_range(kind):
+    """A weight outside the signed ``weight_bits`` range would wrap in
+    the kernel's uint8 crossbar operand; packing refuses it instead."""
+    g, arch = twl("tiny_mlp"), _arch(ta, kind)
+    res = tcompiler.compile_graph(g, arch)
+    exe = tex.lower(res.plan, res.program, device="cpu", cache=False)
+    weights = tfn.make_weights(g, 0)
+    exe.pack(weights)
+    weights["fc1"][0, 0] = 128
+    with pytest.raises(ValueError, match="outside"):
+        exe.pack(weights)

@@ -48,15 +48,20 @@ def test_package_imports_with_jax_and_repro_blocked():
         "sys.modules['jaxlib'] = None\n"
         "sys.modules['repro'] = None\n"
         "import repro_torch\n"
-        "from repro_torch.serving import CimBatchService\n"
-        "from repro_torch.cimsim import executor, functional\n"
+        "from repro_torch.serving import CimBatchService, CimCluster\n"
+        "from repro_torch.serving import (batcher, engine, fleet,\n"
+        "                                 placement, traffic)\n"
+        "from repro_torch.cimsim import executor, faults, functional\n"
         "from repro_torch.kernels.cim_mvm import kernel, ops\n"
         "from repro_torch.workloads import get_workload\n"
         "from repro_torch.core import compiler\n"
         "from repro_torch.core.abstraction import get_arch\n"
         "res = compiler.compile_graph(get_workload('tiny_mlp'),\n"
         "                             get_arch('toy'))\n"
-        "exe = executor.lower(res.plan, res.program, device='cpu')\n"
+        "fm = faults.FaultMap(faults.FaultModel(seed=1, stuck_col_rate=0.1),\n"
+        "                     get_arch('toy'))\n"
+        "exe = executor.lower(res.plan, res.program, device='cpu',\n"
+        "                     faults=fm)\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'repro')\n"
         "             and sys.modules[m] is not None))\n"
@@ -69,11 +74,11 @@ def test_package_imports_with_jax_and_repro_blocked():
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
-    from repro_torch.cimsim import executor, functional
+    from repro_torch.cimsim import executor, faults, functional
     from repro_torch.core import compiler
     from repro_torch.core.abstraction import get_arch
-    from repro_torch.kernels.backend import resolve_device
-    from repro_torch.serving import CimBatchService
+    from repro_torch.kernels.backend import resolve, resolve_device
+    from repro_torch.serving import CimBatchService, CimCluster, TenantSpec
     from repro_torch.workloads import get_workload
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g, arch = get_workload("tiny_mlp"), get_arch("toy")
@@ -82,6 +87,15 @@ def test_default_device_raises_without_cuda(monkeypatch):
         resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CimBatchService(g, arch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CimCluster([TenantSpec("mlp", g)], {"c0": arch})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve("cim_mvm_tiles")                  # no device: the card
+    with pytest.raises(ValueError):
+        resolve("cim_mvm", mode="interpret")      # a bad mode still says so
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        faults.accuracy_under_faults(g, arch, faults.FaultModel(seed=0),
+                                     n_inputs=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         executor.lower(res.plan, res.program, cache=False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
