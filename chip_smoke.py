@@ -42,17 +42,23 @@ Drives ``repro_torch`` only — it imports neither JAX nor ``repro``:
    executor on the kernel equals the same executor on the plain route
    bit for bit, differs from the clean run, and times a faulted against
    a clean dispatch; (b) at 32x32 input the faulted op-by-op interpreter
-   equals the faulted executor; (c) ``fault_aware_compile`` at 224 on a
+   and the faulted executor, both on the kernel, equal the faulted
+   executor on the plain route; (c) ``fault_aware_compile`` at 224 on a
    line-clustered map (stuck and dead bitlines, ADC offsets) and
    ``accuracy_under_faults`` with 4 inputs, unmitigated and remapped
-   (remapped must be 1.0); prints retired lines, attempts and the host
-   seconds spent materialising fault fields, compiling and dispatching.
+   (remapped must be 1.0), and the remapped forward kernel vs plain;
+   the calibration passes at 224 and 32 on the kernel equal the plain
+   route's, tensor for tensor; prints retired lines, attempts and the
+   host seconds spent materialising fault fields, compiling and
+   dispatching.
 6. **Fleet.**  A ``CimCluster`` of two ``jia-issc21`` chips serves
    ResNet-18@224 and ``tiny_cnn`` from a seeded synthetic trace of 48
    requests on the wall clock; one chip is killed midway while a request
    waits in its queue.  No accepted request may be lost, and every
    output must equal a standalone ``CimBatchService`` of its tenant on
-   each sub-arch the tenant was placed on (same weights and shifts);
+   the plain route on each sub-arch the tenant was placed on (same
+   weights and shifts); each tenant's calibration on the kernel must
+   equal the plain route's, tensor for tensor;
    prints per-tenant p50/p99 latency, throughput before and after the
    kill and the evacuated requests.
 
@@ -205,9 +211,11 @@ def _plain_kwargs(params) -> dict:
                 parallel_row=params.parallel_row, adc_bits=params.adc_bits)
 
 
-def time_forward(shapes, params):
-    """(kernel ms, plain ms, bound ms, bound_by) of one forward's
-    ``cim_mvm_tiles`` launches at ``shapes``, on seeded operands."""
+def time_forward(shapes, params, tiles: bool = True):
+    """(kernel ms, plain ms, bound ms, bound_by) of the launches at
+    ``shapes`` ((T, M, R, C) each), on seeded operands: one forward's
+    ``cim_mvm_tiles`` launches, or with ``tiles=False`` one calibration
+    pass's ``cim_mvm`` launches (T = 1)."""
     import numpy as np
     import torch
     from repro_torch.kernels.cim_mvm import kernel, ref
@@ -220,7 +228,10 @@ def time_forward(shapes, params):
 
     def run_kernel():
         for x, w in ops:
-            kernel.cim_mvm_tiles_cuda(x, w, params)
+            if tiles:
+                kernel.cim_mvm_tiles_cuda(x, w, params)
+            else:
+                kernel.cim_mvm_cuda(x[0], w[0], params)
 
     def run_plain():
         for x, w in ops:
@@ -327,27 +338,9 @@ def phase_kernels(tiles_shapes, mvm_shapes, params):
     for name, shapes in (("cim_mvm_tiles", tiles_shapes),
                          ("cim_mvm", [(1, m, r, c) for m, r, c in
                                       mvm_shapes])):
-        ops = [tuple(a.to(dtype).contiguous() for a in
-                     _operands(rng, t, m, r, c, params, DEV))
-               for t, m, r, c in shapes]
-        if name == "cim_mvm_tiles":
-            def run_kernel():
-                for x, w in ops:
-                    kernel.cim_mvm_tiles_cuda(x, w, params)
-        else:
-            def run_kernel():
-                for x, w in ops:
-                    kernel.cim_mvm_cuda(x[0], w[0], params)
-
-        def run_plain():
-            for x, w in ops:
-                ref.cim_mvm_ref_tiles(x, w, **kw)
-
-        ms = timed_ms(run_kernel)
-        plain_ms = timed_ms(run_plain)
+        ms, plain_ms, bms, bound_by = time_forward(
+            shapes, params, tiles=name == "cim_mvm_tiles")
         gemm_ms = timed_ms(plane_gemm(shapes, params, DEV))
-        bms, bound_by = bound_ms(shapes, params, torch.tensor(
-            [], dtype=dtype).element_size())
         rows[name] = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/cim_mvm.cu",
@@ -565,6 +558,34 @@ def phase_exact(graph, arch):
           f"s, CPU batch {out['cpu'][0].latency_s:.4f} s")
 
 
+def check_calibration(graph, weights, x, params, shifts) -> int:
+    """Hold a calibration pass on the kernel against the same pass with
+    every crossbar MVM on the plain route, on the card: the shifts must
+    equal ``shifts`` and every tensor of the two passes must be
+    bit-equal.  Returns the number of tensors compared."""
+    import numpy as np
+    import torch
+    from repro_torch.cimsim.functional import (reference_forward,
+                                               reference_mvm, weights_numpy)
+    from repro_torch.kernels.cim_mvm import cim_mvm_signed
+
+    def plain_mvm(x_rows, w):
+        return cim_mvm_signed(
+            torch.as_tensor(x_rows.astype(np.int32), device=DEV),
+            torch.as_tensor(w.astype(np.int32), device=DEV), params,
+            mode="torch").cpu().numpy()
+
+    w = weights_numpy(weights)
+    got, got_shifts = reference_forward(graph, w, x,
+                                        mvm=reference_mvm(params, DEV))
+    want, want_shifts = reference_forward(graph, w, x, mvm=plain_mvm)
+    assert got_shifts == want_shifts == shifts, (got_shifts, want_shifts)
+    assert got.keys() == want.keys()
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    return len(want)
+
+
 def _run_timed(exe, batched, packed, shifts):
     """(outputs, wall seconds) of one executor pass; copying the outputs
     to the host synchronises."""
@@ -661,13 +682,18 @@ def phase_faults():
     interp = sim.run(x_small)
     interp_s = time.perf_counter() - t0
     res_s = compiler.compile_graph(small, arch)
-    exe_s = lower(res_s.plan, res_s.program, params=params, device=DEV,
-                  cache=False, faults=FaultMap(model, arch))
-    np.testing.assert_array_equal(interp[out],
-                                  exe_s.run(x_small, w_small, s_small)[out])
+    fm_s = FaultMap(model, arch)
+    small_out = {route: lower(res_s.plan, res_s.program, params=params,
+                              mode=route, device=DEV, cache=False,
+                              faults=fm_s).run(x_small, w_small,
+                                               s_small)[out]
+                 for route in ("compiled", "torch")}
+    np.testing.assert_array_equal(interp[out], small_out["torch"])
+    np.testing.assert_array_equal(small_out["compiled"], small_out["torch"])
     print(f"[faults] (b) {small.name}@{FAULT_HW}: the faulted interpreter "
-          f"({sim.stats.cim_reads} crossbar reads, {interp_s:.3f} s) equals "
-          "the faulted executor")
+          f"on the kernel ({sim.stats.cim_reads} crossbar reads, "
+          f"{interp_s:.3f} s) and the faulted executor on the kernel both "
+          "equal the faulted executor on the plain route")
 
     # (c) fault-aware compile and top-1 under faults
     lines = FaultModel(**LINE_FAULTS)
@@ -687,7 +713,20 @@ def phase_faults():
           f"unmitigated {acc[False]} ({acc['False_s']:.3f} s), remapped "
           f"{acc[True]} ({acc['True_s']:.3f} s)")
     assert acc[True] == 1.0, acc
+    remapped = {route: lower(fc.result.plan, fc.result.program,
+                             params=params, mode=route, device=DEV,
+                             cache=False, faults=fc.faults)
+                .run_batch(batched, weights=weights, shifts=shifts)[out]
+                for route in ("compiled", "torch")}
+    np.testing.assert_array_equal(remapped["compiled"], remapped["torch"])
     launches = dict(kernel.LAUNCHES)
+    # calibration passes on the kernel against the plain route (after
+    # the phase's launches were read)
+    n_cal = check_calibration(graph, weights, inputs[0], params, shifts) \
+        + check_calibration(small, w_small, x_small, params, s_small)
+    print(f"[faults] (c) the remapped forward is bit-equal kernel vs plain;"
+          f" calibration at {HW} and {FAULT_HW}: {n_cal} tensors bit-equal "
+          "kernel vs plain")
     # the faulted forward's launches timed alone with CUDA events (not
     # counted: the phase's launches were read above)
     ms, plain_ms, bms, bound_by = time_forward(
@@ -783,8 +822,10 @@ def phase_fleet(graph):
     assert evacuated >= 1, "the kill found no queued request to evacuate"
 
     # each served output against standalone services of its tenant on
-    # every sub-arch the tenant was placed on, same weights and shifts
-    checked = 0
+    # every sub-arch the tenant was placed on, same weights and shifts,
+    # on the plain route; each tenant's calibration (the cluster's seed
+    # 0) on the kernel against the plain route
+    checked = n_cal = 0
     for name, g in graphs.items():
         mine = [r for r in trace if r.model == name]
         engine = next(f.pool[name] for f in cluster.fleets.values()
@@ -796,10 +837,14 @@ def phase_fleet(graph):
                     sub = tplan.subarch(name)
                     views[json.dumps(sub.to_dict(), sort_keys=True,
                                      default=str)] = sub
+        n_cal += check_calibration(g, engine.weights, make_input(g, 0),
+                                   engine.params, engine.shifts)
         for sub in views.values():
             ref = CimBatchService(g, sub, max_batch=max(cluster.buckets),
                                   weights=engine.weights,
-                                  shifts=engine.shifts, device=DEV)
+                                  shifts=engine.shifts, device=DEV,
+                                  mode="torch")
+            assert ref.executor_stats.kernel_mode == "torch"
             refs = [CimRequest(rid=r.rid, inputs=r.inputs) for r in mine]
             ref.serve(refs)
             for a, b in zip(mine, refs):
@@ -816,8 +861,9 @@ def phase_fleet(graph):
     print(f"[fleet] {len(trace)} requests over {end:.3f} s (set-up "
           f"{setup_s:.3f} s), none lost; jia-b killed at {kill_at:.3f} s, "
           f"{evacuated} queued requests evacuated; {checked} outputs "
-          "bit-equal to standalone services on every sub-arch of their "
-          "tenant")
+          "bit-equal to standalone services on the plain route on every "
+          f"sub-arch of their tenant; calibration {n_cal} tensors bit-equal "
+          "kernel vs plain")
     print("[fleet] latency per tenant (p50 / p99 s): " + "; ".join(
         f"{n}: {percentile(v, 50):.4f} / {percentile(v, 99):.4f} "
         f"({len(v)} requests)" for n, v in lat.items()))

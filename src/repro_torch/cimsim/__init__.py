@@ -13,6 +13,7 @@ _EXPORTS = {
     "ExecutorStats": ".executor",
     "LoweredExecutable": ".executor",
     "LoweringError": ".executor",
+    "TileRangeError": ".executor",
     "lower": ".executor",
     "FaultModel": ".faults",
     "FaultMap": ".faults",

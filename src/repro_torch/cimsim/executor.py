@@ -102,6 +102,13 @@ class LoweringError(ValueError):
     int32 overflow risk); callers should fall back to the interpreter."""
 
 
+class TileRangeError(RuntimeError):
+    """An offset-encoded crossbar tile left the kernel's operand range.
+    Not a ``ValueError``: callers that treat a ``ValueError`` as an
+    infeasible plan or a ``LoweringError`` as a cue to fall back must not
+    mistake a packing fault for either."""
+
+
 @dataclasses.dataclass
 class ExecutorStats:
     """Lowering statistics (shape of the flattened program)."""
@@ -531,7 +538,7 @@ class LoweredExecutable:
         w_u = tiles + self._ow
         if w_u.size and (int(w_u.min()) < 0
                          or int(w_u.max()) >= 2 * self._ow):
-            raise ValueError(
+            raise TileRangeError(
                 f"encoded crossbar tiles span [{int(w_u.min())}, "
                 f"{int(w_u.max())}], outside [0, {2 * self._ow - 1}]")
         return w_u

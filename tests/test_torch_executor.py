@@ -264,5 +264,5 @@ def test_pack_rejects_weights_outside_the_encoded_range(kind):
     weights = tfn.make_weights(g, 0)
     exe.pack(weights)
     weights["fc1"][0, 0] = 128
-    with pytest.raises(ValueError, match="outside"):
+    with pytest.raises(tex.TileRangeError, match="outside"):
         exe.pack(weights)

@@ -468,6 +468,25 @@ def test_kill_last_chip_and_failover_ladder_raise():
     assert cluster.demoted == {"cnn", "mlp"}
 
 
+def test_failover_packing_fault_propagates_without_demotions(monkeypatch):
+    """A tile that leaves the kernel's operand range while the survivor
+    is re-packed is a packing fault, not an infeasible plan: it leaves
+    the failover ladder as is, and no tenant is demoted for it."""
+    chips = {"c0": _saturating_chip(), "c1": _saturating_chip()}
+    cnn_spec, mlp_spec = _tenants()
+    plan = FleetPlan.from_split({"c0": [cnn_spec], "c1": [mlp_spec]}, chips)
+    cluster = _fault_cluster([ChipFault(at_s=2.0, chip="c0")], chips=chips,
+                             plan=plan)
+    cluster.submit("mlp", make_input(MLP, 0), now=0.0)
+    cluster.drain(now=0.0)
+    encode = tex.LoweredExecutable._encode
+    monkeypatch.setattr(tex.LoweredExecutable, "_encode",
+                        lambda self, tiles: encode(self, tiles + 1000))
+    with pytest.raises(tex.TileRangeError, match="outside"):
+        cluster.submit("mlp", make_input(MLP, 1), now=5.0)
+    assert cluster.demoted == set() and cluster.demotions == 0
+
+
 def test_trace_roundtrip_and_schema(tmp_path):
     tr = TraceRecorder()
     cluster = CimCluster(
