@@ -61,9 +61,26 @@ Drives ``repro_torch`` only — it imports neither JAX nor ``repro``:
    equal the plain route's, tensor for tensor;
    prints per-tenant p50/p99 latency, throughput before and after the
    kill and the evacuated requests.
+7. **Design-space exploration.**  A successive-halving ``run_campaign``
+   over ResNet-18@224 and ViT-base (d = 768, 197 tokens, 12 layers) on
+   a 32-point ``jia-issc21`` space (cell precision 1 or 2 bits, 8 or 16
+   cores, both bit bindings, pipeline and duplication on and off; the
+   8-bit ADC over 1152 rows keeps every point saturating, so on the
+   kernel), each workload's winning point verified on the card
+   (``verify_best``, 2 inputs) from a fresh store; then the same
+   campaign with 2 compile workers (a forkserver pool) must give the
+   same winners, frontiers, metrics and verify errors.  Each winner is
+   lowered again and dispatched on the kernel and on the plain route,
+   bit-equal, and its calibration pass is held against the plain route
+   tensor for tensor; ``evaluate_point`` of ResNet-18@224 on ``puma``
+   under phase 5's line-clustered map gives the same ``fault_top1`` on
+   both routes; ``explain_compile`` of ResNet-18@224 on ``jia-issc21``
+   must cover every node.  Prints the winners, frontier sizes, full
+   evaluations against exhaustive, and each verify's compile, lower and
+   run seconds and ``max_abs_err``.
 
-Launch counts are set to 0 just before each of phases 3, 5 and 6 and
-read just after; each must have launched ``cim_mvm_tiles`` and
+Launch counts are set to 0 just before each of phases 3, 5, 6 and 7
+and read just after; each must have launched ``cim_mvm_tiles`` and
 ``cim_mvm``.  Prints one ``{"kernels": [...]}`` JSON line (``launches``
 is phase 3's count, ``launches_by_path`` every phase's) and the
 ``nvidia-smi`` line before the last line, which is ``{"ok": true,
@@ -100,6 +117,11 @@ LINE_FAULTS = dict(seed=0, stuck_col_rate=0.01, dead_col_rate=1e-3,
                    adc_offset_sigma=1.0)
 FLEET_REQUESTS = 48
 FLEET_TRACE_S = 6.0           # wall seconds the trace's arrivals span
+VIT = {}                      # vit_base() at its published widths
+#: phase 7's arch axes over jia-issc21 (core_number is a (rows, cols)
+#: grid: 8 or 16 cores)
+DSE_AXES = {"xb.cell_precision": [1, 2], "chip.core_number": [(2, 4), (4, 4)]}
+VERIFY_BATCH = 2
 
 
 def gpu_line() -> str:
@@ -416,25 +438,23 @@ def _device_us(event, total: bool = False) -> float:
                  else event.self_device_time_total)
 
 
-def profile_dispatch(svc, graph):
-    """One more batch dispatch of ``svc`` under ``torch.profiler``: wall
-    seconds, the device's busy share (the sum of its kernel and copy
-    times over the wall time, the profiled one's and that of the same
-    dispatch unprofiled just before; one stream, so they do not overlap)
-    and the top device kernels and operators by device time."""
+def profile_call(fn, label: str):
+    """``fn()`` (one dispatch, which synchronises) once bare and once
+    under ``torch.profiler``: wall seconds, the device's busy share (the
+    sum of its kernel and copy times over the wall time, the profiled
+    one's and the bare one's; one stream, so they do not overlap) and
+    the top device kernels and operators by device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.cimsim.functional import make_input
-    from repro_torch.serving import CimRequest
-    reqs = [CimRequest(rid=100 + i, inputs=make_input(graph, i))
-            for i in range(BATCH)]
-    bare = svc.dispatch(reqs)
+    t0 = time.perf_counter()
+    fn()
     torch.cuda.synchronize()
+    bare = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        svc.dispatch(reqs)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     stats = prof.key_averages()
@@ -452,7 +472,7 @@ def profile_dispatch(svc, graph):
                        for e in dev[:8]],
            "operators": [(e.key, e.count, _device_us(e, True) / 1e3)
                          for e in ops[:8]]}
-    print(f"[profile] one batch-{BATCH} dispatch: wall {wall:.4f} s "
+    print(f"[profile] {label}: wall {wall:.4f} s "
           f"profiled, {bare:.4f} s unprofiled; device busy "
           f"{busy_s * 1e3:.3f} ms ({100 * out['busy_share']:.1f} % of the "
           f"profiled wall, {100 * out['unprofiled_busy_share']:.1f} % of the "
@@ -517,7 +537,10 @@ def phase_main(graph, arch):
         y = r.outputs["fc.out"]
         assert y.shape == (1000,) and y.dtype == np.int32, (y.shape, y.dtype)
         assert -128 <= int(y.min()) and int(y.max()) <= 127
-    timings["profile"] = profile_dispatch(svc, graph)
+    preqs = [CimRequest(rid=100 + i, inputs=make_input(graph, i))
+             for i in range(BATCH)]
+    timings["profile"] = profile_call(lambda: svc.dispatch(preqs),
+                                      f"one batch-{BATCH} dispatch")
 
     plain = CimBatchService(graph, arch, max_batch=BATCH, device=DEV,
                             mode="torch", weights=svc.weights,
@@ -874,6 +897,133 @@ def phase_fleet(graph):
     return launches
 
 
+def _campaign_view(camp):
+    """A campaign's winners, frontiers, full-fidelity metrics and verify
+    errors, comparable across runs."""
+    return {name: (w.best.point.label(),
+                   [r.point.label() for r in w.frontier],
+                   [(r.point.label(), r.metrics, r.error)
+                    for r in w.results],
+                   w.full_evals, w.verify.max_abs_err)
+            for name, w in camp.workloads.items()}
+
+
+def phase_dse(graph):
+    """Phase 7; returns the launch counts of its run."""
+    import tempfile
+    import numpy as np
+    from repro_torch.cimsim.executor import clear_lower_cache, lower
+    from repro_torch.cimsim.faults import FaultModel
+    from repro_torch.cimsim.functional import (calibrate_shifts, make_input,
+                                               make_weights)
+    from repro_torch.core import compiler
+    from repro_torch.core.abstraction import get_arch
+    from repro_torch.dse import (CompileCache, DesignPoint, DesignSpace,
+                                 evaluate_point, run_campaign)
+    from repro_torch.kernels.cim_mvm import cim_mvm_params, kernel
+    from repro_torch.obs import explain_compile
+    from repro_torch.workloads import vit_base
+
+    t_phase = time.perf_counter()
+    jia = get_arch("jia-issc21")
+    space = DesignSpace(jia, arch_axes=DSE_AXES)
+    graphs = {"resnet18": graph, "vit": vit_base(**VIT)}
+    clear_lower_cache()          # phase 5 lowered the same puma forward
+    kernel.reset_launch_counts()
+    camps, views = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for workers in (1, 2):
+            before = kernel.LAUNCHES["cim_mvm_tiles"]
+            t0 = time.perf_counter()
+            camp = run_campaign(
+                graphs, space, verify_best=True, verify_batch=VERIFY_BATCH,
+                device=DEV, workers=workers,
+                cache=CompileCache(pathlib.Path(tmp) / f"w{workers}"))
+            wall = time.perf_counter() - t0
+            grew = kernel.LAUNCHES["cim_mvm_tiles"] - before
+            assert grew > 0, "verify_best never reached the kernel"
+            camps[workers], views[workers] = camp, _campaign_view(camp)
+            for name, w in camp.workloads.items():
+                v = w.verify
+                assert v.error is None, v.error
+                print(f"[dse] workers {workers}: {name} best "
+                      f"'{w.best.point.label()}', frontier "
+                      f"{len(w.frontier)}, {w.full_evals} full evaluations "
+                      f"of {camp.n_points} (exhaustive); verify compile "
+                      f"{v.compile_s:.3f} s, lower {v.lower_s:.3f} s, run "
+                      f"{v.run_s:.3f} s, max_abs_err {v.max_abs_err}")
+            print(f"[dse] workers {workers}: campaign {wall:.3f} s, "
+                  f"{grew} cim_mvm_tiles launches in verify_best")
+    assert views[1] == views[2], "workers 1 and 2 disagree"
+
+    # the fault metric of the DSE tier on the kernel, and provenance
+    puma = get_arch(FAULT_ARCH)
+    point = DesignPoint(level=puma.mode.value, binding="B->XBC",
+                        use_pipeline=True, use_duplication=True)
+    lines = FaultModel(**LINE_FAULTS)
+    top1 = {}
+    t0 = time.perf_counter()
+    top1["compiled"] = evaluate_point(graph, puma, point,
+                                      fault_model=lines,
+                                      device=DEV)[0]["fault_top1"]
+    top1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report = explain_compile(graph, jia)
+    explain_s = time.perf_counter() - t0
+    assert report.coverage == 1.0, report.coverage
+    launches = dict(kernel.LAUNCHES)
+    assert launches["cim_mvm_tiles"] > 0 and launches["cim_mvm"] > 0, \
+        launches
+
+    # held against the plain route (after the phase's launches were read)
+    t0 = time.perf_counter()
+    top1["torch"] = evaluate_point(graph, puma, point, fault_model=lines,
+                                   device=DEV, mode="torch")[0]["fault_top1"]
+    top1_plain_s = time.perf_counter() - t0
+    assert top1["compiled"] == top1["torch"], top1
+    n_out = n_cal = 0
+    for name, w in camps[1].workloads.items():
+        g, pt = graphs[name], w.best.point
+        arch = pt.arch_for(jia)
+        params = cim_mvm_params(arch)
+        res = compiler.compile_graph(g, arch, **pt.compile_kwargs())
+        weights = make_weights(g, 0)
+        inputs = [make_input(g, i) for i in range(VERIFY_BATCH)]
+        batched = {k: np.stack([x[k] for x in inputs]) for k in g.inputs}
+        shifts = calibrate_shifts(g, weights, inputs[0], params, device=DEV)
+        outs = {}
+        for route in ("compiled", "torch"):
+            exe = lower(res.plan, res.program, params=params, mode=route,
+                        device=DEV, cache=False)
+            assert exe.stats.kernel_mode == route, exe.stats
+            packed = exe.pack(weights)
+            outs[route] = exe.run_batch(batched, packed=packed,
+                                        shifts=shifts)
+            if route == "compiled":
+                print(f"[dse] {name} winner: {exe.stats}")
+                profile_call(lambda: exe.run_batch(batched, packed=packed,
+                                                   shifts=shifts),
+                             f"{name} winner, one batch-{VERIFY_BATCH} "
+                             "dispatch")
+        for t in g.outputs:
+            np.testing.assert_array_equal(outs["compiled"][t],
+                                          outs["torch"][t], err_msg=t)
+            n_out += 1
+        n_cal += check_calibration(g, weights, inputs[0], params, shifts)
+    print(f"[dse] winners re-dispatched: {n_out} outputs bit-equal kernel "
+          f"vs plain; calibration {n_cal} tensors bit-equal kernel vs "
+          "plain")
+    print(f"[dse] evaluate_point {graph.name}@{HW} on {puma.name} under "
+          f"the line-clustered map: fault_top1 {top1['compiled']} on the "
+          f"kernel ({top1_s:.3f} s), {top1['torch']} on the plain route "
+          f"({top1_plain_s:.3f} s)")
+    print(f"[dse] explain {graph.name}@{HW} on {jia.name}: coverage "
+          f"{report.coverage}, {len(report.rows)} rows, "
+          f"{report.meta['segments']} segments ({explain_s:.3f} s); "
+          f"launches {launches}; phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -899,7 +1049,7 @@ def main() -> int:
     print(f"[exact] phase {time.perf_counter() - t0:.1f} s")
     fault_launches, puma_forward = phase_faults()
     by_path = {"main": launches, "faults": fault_launches,
-               "fleet": phase_fleet(graph)}
+               "fleet": phase_fleet(graph), "dse": phase_dse(graph)}
     for name, row in rows.items():
         row["launches_by_path"] = {p: n[name] for p, n in by_path.items()}
     rows["cim_mvm_tiles"]["puma_faulted_forward"] = puma_forward

@@ -446,7 +446,7 @@ def accuracy_under_faults(graph, arch: CIMArch, model: FaultModel, *,
     ``remap=True``) — and returns the fraction of inputs whose argmax
     over the (flattened) first graph output agrees.  Both executors and
     the calibration pass run on ``device`` (on the card: the CUDA
-    kernel); ``mode`` forces the executors' crossbar-MVM route.
+    kernel); ``mode`` forces their crossbar-MVM route.
     """
     from ..core import compiler
     from ..kernels.backend import resolve_device
@@ -459,7 +459,7 @@ def accuracy_under_faults(graph, arch: CIMArch, model: FaultModel, *,
     weights = make_weights(graph, seed)
     inputs = [make_input(graph, seed + i) for i in range(n_inputs)]
     _, shifts = reference_forward(graph, weights, inputs[0],
-                                  mvm=reference_mvm(p, dev))
+                                  mvm=reference_mvm(p, dev, mode))
     batched = {name: np.stack([x[name] for x in inputs])
                for name in graph.inputs}
 

@@ -334,14 +334,15 @@ def spread_slice(rows_in_tile: int, parallel_row: int, row_spread: int,
 
 
 def signed_oracle_mvm(x_rows: np.ndarray, w: np.ndarray,
-                      p: CimMvmParams, device="cuda") -> np.ndarray:
+                      p: CimMvmParams, device="cuda",
+                      mode: Optional[str] = None) -> np.ndarray:
     """Signed MVM through the crossbar MVM via offset encoding.
 
     The standard CIM trick shared by the interpreter, the executor and
     the saturating-ADC reference: store ``x + 2^(ab-1)`` / ``w + 2^(wb-1)``
     unsigned, run the bit-sliced ADC-saturating ``cim_mvm`` on
-    ``device`` (on the card: the CUDA kernel), subtract the rank-1
-    correction digitally.
+    ``device`` (on the card: the CUDA kernel; ``mode`` forces the
+    route), subtract the rank-1 correction digitally.
     """
     dev = resolve_device(device)
     ox = 1 << (p.act_bits - 1)
@@ -350,22 +351,24 @@ def signed_oracle_mvm(x_rows: np.ndarray, w: np.ndarray,
     w_u = w.astype(np.int64) + ow
     y_u = cim_mvm(torch.as_tensor(x_u.astype(np.int32), device=dev),
                   torch.as_tensor(w_u.astype(np.int32), device=dev),
-                  p).cpu().numpy().astype(np.int64)
+                  p, mode=mode).cpu().numpy().astype(np.int64)
     r = x_rows.shape[-1]
     sx = x_u.sum(axis=-1, keepdims=True)
     sw = w_u.sum(axis=0, keepdims=True)
     return y_u - ow * sx - ox * sw + r * ox * ow
 
 
-def reference_mvm(params: CimMvmParams, device="cuda"):
+def reference_mvm(params: CimMvmParams, device="cuda",
+                  mode: Optional[str] = None):
     """The MVM the int8 reference must use for these crossbar params:
     ``None`` (exact integer matmul) when the ADC provably never
-    saturates, else the offset-encoded crossbar MVM on ``device`` — so
-    calibration, simulation and verification all share one dispatch
-    rule."""
+    saturates, else the offset-encoded crossbar MVM on ``device`` (its
+    route forced by ``mode``) — so calibration, simulation and
+    verification all share one dispatch rule."""
     if params.exact:
         return None
-    return lambda x_rows, w: signed_oracle_mvm(x_rows, w, params, device)
+    return lambda x_rows, w: signed_oracle_mvm(x_rows, w, params, device,
+                                               mode)
 
 
 # ---------------------------------------------------------------------------
@@ -382,13 +385,14 @@ class SimStats:
 
 class FunctionalSimulator:
     """Executes an expanded meta-operator flow for one inference; every
-    crossbar read runs ``cim_mvm`` on ``device``."""
+    crossbar read runs ``cim_mvm`` on ``device`` (its route forced by
+    ``mode``)."""
 
     def __init__(self, plan: SchedulePlan, program: Program,
                  weights: Dict[str, np.ndarray],
                  shifts: Dict[str, int],
                  params: Optional[CimMvmParams] = None,
-                 device="cuda", faults=None):
+                 device="cuda", faults=None, mode: Optional[str] = None):
         self.plan = plan
         self.graph: Graph = plan.graph
         self.arch: CIMArch = plan.arch
@@ -397,6 +401,7 @@ class FunctionalSimulator:
         self.shifts = shifts
         self.params = params or cim_mvm_params(plan.arch)
         self.device = resolve_device(device)
+        self.mode = mode
         #: optional cimsim.faults.FaultMap — every crossbar read applies
         #: its tile's weight transform + post-MVM offset (the executor
         #: applies the identical per-span functions; see faults.py)
@@ -415,7 +420,7 @@ class FunctionalSimulator:
         p = self.params
         if parallel_row is not None:
             p = dataclasses.replace(p, parallel_row=parallel_row)
-        return signed_oracle_mvm(x_rows, w, p, self.device)
+        return signed_oracle_mvm(x_rows, w, p, self.device, self.mode)
 
     def _faulted(self, name: str, span: Tuple[int, int, int, int],
                  wsub: np.ndarray):
@@ -635,6 +640,7 @@ class VerifyReport:
     max_abs_err: Dict[str, int]          # per graph output
     lower_s: float = 0.0
     run_s: float = 0.0
+    compile_s: float = 0.0               # compile_graph, cache hit or not
     #: set when verification could not run at all (compile/lowering
     #: failure) — ``max_abs_err`` is then empty and ``ok`` is False
     error: Optional[str] = None
@@ -649,7 +655,8 @@ def compile_and_verify(graph: Graph, arch: CIMArch, *, level=None,
                        seed: int = 0, batch: int = 1,
                        params: Optional[CimMvmParams] = None,
                        use_executor: bool = True, device="cuda",
-                       faults=None, **compile_kwargs) -> VerifyReport:
+                       faults=None, mode: Optional[str] = None,
+                       **compile_kwargs) -> VerifyReport:
     """Compile ``graph`` for ``arch`` and verify the emitted flow against
     the int8 fake-quant reference on ``batch`` random inputs.
 
@@ -662,7 +669,9 @@ def compile_and_verify(graph: Graph, arch: CIMArch, *, level=None,
     design point can be verified.  With ``faults`` set the simulated
     crossbars carry the fault map while the reference stays clean, so
     ``max_abs_err`` measures fault-induced deviation (``ok`` then means
-    the faults were numerically invisible).
+    the faults were numerically invisible).  Everything runs on
+    ``device``; ``mode`` forces the crossbar-MVM route of the reference,
+    the executor and the interpreter alike.
     """
     import time
     from ..core import compiler
@@ -670,7 +679,7 @@ def compile_and_verify(graph: Graph, arch: CIMArch, *, level=None,
     weights = make_weights(graph, seed)
     p = params or cim_mvm_params(arch)
     inputs = [make_input(graph, seed + i) for i in range(batch)]
-    ref_mvm = reference_mvm(p, dev)
+    ref_mvm = reference_mvm(p, dev, mode)
     _, shifts = reference_forward(graph, weights, inputs[0], mvm=ref_mvm)
     refs = [reference_forward(graph, weights, x, shifts=shifts,
                               mvm=ref_mvm)[0] for x in inputs]
@@ -678,12 +687,14 @@ def compile_and_verify(graph: Graph, arch: CIMArch, *, level=None,
     err = {t: 0 for t in graph.outputs}
     if use_executor:
         from .executor import LoweringError, lower
+        t0 = time.time()
         res = compiler.compile_graph(graph, arch, level=level,
                                      **compile_kwargs)
+        compile_s = time.time() - t0
         try:
             t0 = time.time()
-            exe = lower(res.plan, res.program, params=p, device=dev,
-                        faults=faults)
+            exe = lower(res.plan, res.program, params=p, mode=mode,
+                        device=dev, faults=faults)
             packed = exe.pack(weights)
             t1 = time.time()
             batched = {name: np.stack([x[name] for x in inputs])
@@ -697,14 +708,17 @@ def compile_and_verify(graph: Graph, arch: CIMArch, *, level=None,
                     err[t] = max(err[t], int(d.max()) if d.size else 0)
             return VerifyReport(graph=graph.name, arch=arch.name,
                                 batch=batch, max_abs_err=err,
-                                lower_s=t1 - t0, run_s=t2 - t1)
+                                lower_s=t1 - t0, run_s=t2 - t1,
+                                compile_s=compile_s)
         except LoweringError:
             pass       # fast path unavailable: verify op by op below
 
+    t0 = time.time()
     res = compiler.compile_graph(graph, arch, level=level, expand=True,
                                  **compile_kwargs)
+    compile_s = time.time() - t0
     sim = FunctionalSimulator(res.plan, res.program, weights, shifts,
-                              params=p, device=dev, faults=faults)
+                              params=p, device=dev, faults=faults, mode=mode)
     t0 = time.time()
     for i, x in enumerate(inputs):
         out = sim.run(x)
@@ -712,4 +726,5 @@ def compile_and_verify(graph: Graph, arch: CIMArch, *, level=None,
             d = np.abs(out[t].astype(np.int64) - refs[i][t].astype(np.int64))
             err[t] = max(err[t], int(d.max()) if d.size else 0)
     return VerifyReport(graph=graph.name, arch=arch.name, batch=batch,
-                        max_abs_err=err, run_s=time.time() - t0)
+                        max_abs_err=err, run_s=time.time() - t0,
+                        compile_s=compile_s)

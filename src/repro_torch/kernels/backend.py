@@ -46,6 +46,13 @@ class KernelUnsupportedError(RuntimeError):
     """The requested (kernel, mode, platform) combination cannot run."""
 
 
+class KernelArgumentError(RuntimeError):
+    """A kernel wrapper was handed tensors it cannot launch on: the wrong
+    device, dtype, shape or layout.  A ``RuntimeError``, like every fault
+    of the kernel path, so no caller that reports ``ValueError`` as an
+    infeasible design point can take it for one."""
+
+
 @dataclasses.dataclass(frozen=True)
 class KernelCapability:
     """Per-kernel support matrix: ``compiled_platforms`` lists platforms

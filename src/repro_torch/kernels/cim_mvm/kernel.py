@@ -22,9 +22,10 @@ source's header).  ``plan_launch`` decides, in plain Python, how the
 tensor-core kernel's work splits across blocks: by output tile, by a
 range of row groups and by a range of bit phases, each block adding its
 partial sums into the zeroed output with integer atomics.  A wrapper
-checks device, dtype, shape and contiguity, raises on anything else,
-allocates the output and launches on PyTorch's current stream.  It
-never falls back to the plain version.
+checks device, dtype, shape and contiguity, raises
+``KernelArgumentError`` on anything else, allocates the output and
+launches on PyTorch's current stream.  It never falls back to the plain
+version.
 """
 from __future__ import annotations
 
@@ -40,6 +41,8 @@ import subprocess
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from ..backend import KernelArgumentError
 
 _PKG = pathlib.Path(__file__).resolve().parents[2]          # src/repro_torch
 SOURCE = _PKG / "csrc" / "cim_mvm.cu"
@@ -230,15 +233,18 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, params,
     dtype = operand_dtype(params)
     for label, a in (("x_u", x), ("w_u", w)):
         if not a.is_cuda:
-            raise ValueError(f"{name}: {label} is on {a.device}, the "
-                             "kernel runs on CUDA tensors only")
+            raise KernelArgumentError(
+                f"{name}: {label} is on {a.device}, the kernel runs on "
+                "CUDA tensors only")
         if a.dtype != dtype:
-            raise TypeError(f"{name}: {label} is {a.dtype}, the kernel "
-                            f"takes {dtype} for these params")
+            raise KernelArgumentError(
+                f"{name}: {label} is {a.dtype}, the kernel takes {dtype} "
+                "for these params")
         if not a.is_contiguous():
-            raise ValueError(f"{name}: {label} must be contiguous")
+            raise KernelArgumentError(f"{name}: {label} must be contiguous")
     if x.device != w.device:
-        raise ValueError(f"{name}: x_u on {x.device}, w_u on {w.device}")
+        raise KernelArgumentError(
+            f"{name}: x_u on {x.device}, w_u on {w.device}")
     # zeroed: the tensor-core kernel's blocks add their partial sums in
     out = torch.zeros((t, m, c), dtype=torch.int32, device=x.device)
     if out.numel() == 0:          # an empty grid is a launch error
@@ -267,8 +273,9 @@ def cim_mvm_tiles_cuda(x_u: torch.Tensor, w_u: torch.Tensor,
     """(T,M,R) x (T,R,C) -> (T,M,C) int32 on the card."""
     if x_u.dim() != 3 or w_u.dim() != 3 or x_u.shape[0] != w_u.shape[0] \
             or x_u.shape[2] != w_u.shape[1]:
-        raise ValueError(f"cim_mvm_tiles: shapes {tuple(x_u.shape)} x "
-                         f"{tuple(w_u.shape)} are not (T,M,R) x (T,R,C)")
+        raise KernelArgumentError(
+            f"cim_mvm_tiles: shapes {tuple(x_u.shape)} x "
+            f"{tuple(w_u.shape)} are not (T,M,R) x (T,R,C)")
     t, m, r = x_u.shape
     return _launch("cim_mvm_tiles", x_u, w_u, params, t, m, r, w_u.shape[2])
 
@@ -277,7 +284,8 @@ def cim_mvm_cuda(x_u: torch.Tensor, w_u: torch.Tensor,
                  params) -> torch.Tensor:
     """(M,R) x (R,C) -> (M,C) int32 on the card (the kernel at T = 1)."""
     if x_u.dim() != 2 or w_u.dim() != 2 or x_u.shape[1] != w_u.shape[0]:
-        raise ValueError(f"cim_mvm: shapes {tuple(x_u.shape)} x "
-                         f"{tuple(w_u.shape)} are not (M,R) x (R,C)")
+        raise KernelArgumentError(
+            f"cim_mvm: shapes {tuple(x_u.shape)} x "
+            f"{tuple(w_u.shape)} are not (M,R) x (R,C)")
     m, r = x_u.shape
     return _launch("cim_mvm", x_u, w_u, params, 1, m, r, w_u.shape[1])[0]

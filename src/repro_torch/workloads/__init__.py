@@ -1,12 +1,17 @@
 """CIM benchmark networks (§4.1 "Network Benchmark") as graph builders."""
+from .vgg import vgg7, vgg16
 from .resnet import resnet18, resnet34, resnet50, resnet101
+from .vit import vit_base
 from .tiny import tiny_cnn, tiny_mlp, conv_relu_toy
 
 WORKLOADS = {
+    "vgg7": vgg7,
+    "vgg16": vgg16,
     "resnet18": resnet18,
     "resnet34": resnet34,
     "resnet50": resnet50,
     "resnet101": resnet101,
+    "vit": vit_base,
     "tiny_cnn": tiny_cnn,
     "tiny_mlp": tiny_mlp,
     "conv_relu_toy": conv_relu_toy,
@@ -14,6 +19,10 @@ WORKLOADS = {
 
 
 def get_workload(name: str, **kw):
+    if name.startswith("lmblock:"):
+        raise NotImplementedError(
+            f"{name!r}: the LM block workloads need the LM configs, which "
+            "this package does not have yet")
     if name not in WORKLOADS:
         raise KeyError(f"unknown workload {name!r}; have {sorted(WORKLOADS)}")
     return WORKLOADS[name](**kw)

@@ -2,8 +2,9 @@
 
 An AST scan finds no import of ``jax`` or ``repro`` in the port's
 package or in ``chip_smoke.py``; the package imports in a process where
-both are blocked; and entry points asked for the default device raise
-when there is no CUDA card.
+both are blocked; entry points asked for the default device raise
+when there is no CUDA card; and the port's compile store is its own and
+refuses the JAX package's entries.
 """
 import ast
 import pathlib
@@ -56,8 +57,19 @@ def test_package_imports_with_jax_and_repro_blocked():
         "from repro_torch.workloads import get_workload\n"
         "from repro_torch.core import compiler\n"
         "from repro_torch.core.abstraction import get_arch\n"
+        "from repro_torch import dse\n"
+        "from repro_torch.dse import (adaptive, cache, campaign, pareto,\n"
+        "                             proxy_vec, report, runner, search,\n"
+        "                             space)\n"
+        "from repro_torch.obs import explain\n"
+        "from repro_torch.core import baselines\n"
         "res = compiler.compile_graph(get_workload('tiny_mlp'),\n"
         "                             get_arch('toy'))\n"
+        "camp = dse.run_campaign({'cnn': get_workload('tiny_cnn')},\n"
+        "                        dse.DesignSpace(get_arch('toy')),\n"
+        "                        verify_best=True, device='cpu')\n"
+        "assert camp.workloads['cnn'].verify.ok\n"
+        "explain.explain_compile(get_workload('tiny_cnn'), get_arch('toy'))\n"
         "fm = faults.FaultMap(faults.FaultModel(seed=1, stuck_col_rate=0.1),\n"
         "                     get_arch('toy'))\n"
         "exe = executor.lower(res.plan, res.program, device='cpu',\n"
@@ -100,7 +112,63 @@ def test_default_device_raises_without_cuda(monkeypatch):
         executor.lower(res.plan, res.program, cache=False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         functional.compile_and_verify(g, arch)
+    from repro_torch import dse
+    space = dse.DesignSpace(arch, levels=("WLM",), bindings=("B->XBC",),
+                            pipeline=(True,), duplication=(True,))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dse.run_campaign([g], space, mode="exhaustive", verify_best=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dse.evaluate_point(g, arch, space.points()[0],
+                           fault_model=faults.FaultModel(seed=0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         functional.weights_from_reference(functional.make_weights(g), {},
                                           executor.cim_mvm_params(arch))
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_compile_store_is_the_ports_own(tmp_path, monkeypatch):
+    """The port's default store differs from the JAX package's, the JAX
+    package's variable does not move it, and an entry the JAX package
+    wrote under the same key raises instead of being unpickled (which
+    would import ``repro``) or recompiled in silence."""
+    from repro import dse as jdse
+    from repro.core import abstraction as ja
+    from repro.core import compiler as jcompiler
+    from repro.workloads import get_workload as jwl
+    from repro_torch import dse as tdse
+    from repro_torch.core import abstraction as ta
+    from repro_torch.core import compiler as tcompiler
+    from repro_torch.workloads import get_workload as twl
+
+    monkeypatch.delenv("REPRO_COMPILE_CACHE_DIR", raising=False)
+    monkeypatch.delenv(tdse.cache.CACHE_DIR_ENV, raising=False)
+    ours = tdse.default_cache_dir()
+    assert ours != jdse.default_cache_dir()
+    assert ours.name == "compile" and ours.parent.name == \
+        "repro-cim-mlc-torch"
+    monkeypatch.setenv("REPRO_COMPILE_CACHE_DIR", str(tmp_path / "jax"))
+    assert tdse.default_cache_dir() == ours
+    assert jdse.default_cache_dir() == tmp_path / "jax"
+    monkeypatch.setenv("REPRO_TORCH_COMPILE_CACHE_DIR", str(tmp_path / "t"))
+    assert tdse.default_cache_dir() == tmp_path / "t"
+
+    root = tmp_path / "shared"
+    jres = jcompiler.compile_graph(jwl("tiny_mlp"), ja.get_arch("toy"),
+                                   cache=jdse.CompileCache(root))
+    key = tcompiler.compile_key(twl("tiny_mlp"), ta.get_arch("toy"))
+    assert key == jres.key
+    theirs = tdse.CompileCache(root)
+    with pytest.raises(tdse.ForeignEntryError, match="repro"):
+        theirs.get(key)
+    with pytest.raises(tdse.ForeignEntryError):
+        tcompiler.compile_graph(twl("tiny_mlp"), ta.get_arch("toy"),
+                                cache=theirs)
+    assert theirs.misses == 0 and theirs.hits == 0
+    # the port's own entries round-trip, and truncated ones still
+    # degrade to a recompute
+    own = tdse.CompileCache(tmp_path / "own")
+    first = tcompiler.compile_graph(twl("tiny_mlp"), ta.get_arch("toy"),
+                                    cache=own)
+    assert tdse.CompileCache(tmp_path / "own").get(key).key == first.key
+    own._pkl(key).write_bytes(b"\x80\x05truncated")
+    assert tdse.CompileCache(tmp_path / "own").get(key) is None

@@ -183,9 +183,9 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     x = torch.zeros((1, 2, 8), dtype=torch.uint8)
     w = torch.zeros((1, 8, 3), dtype=torch.uint8)
     before = dict(kernel.LAUNCHES)
-    with pytest.raises(ValueError, match="CUDA"):
+    with pytest.raises(backend.KernelArgumentError, match="CUDA"):
         kernel.cim_mvm_tiles_cuda(x, w, CimMvmParams())
-    with pytest.raises(ValueError, match="CUDA"):
+    with pytest.raises(backend.KernelArgumentError, match="CUDA"):
         kernel.cim_mvm_cuda(x[0], w[0], CimMvmParams())
     assert kernel.LAUNCHES == before
 
