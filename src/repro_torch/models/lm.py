@@ -1,0 +1,700 @@
+"""Generic language model covering the assigned architecture pool, in
+eager PyTorch.
+
+A port of ``repro.models.lm``.  One config-driven implementation
+provides:
+  * attention mixers: GQA/MHA (full, sliding-window, alternating),
+    softcaps, QKV bias, RoPE / M-RoPE; MLA (DeepSeek-V2) with compressed
+    KV cache and absorbed decode; Mamba2 SSD; Hymba parallel attn+SSM.
+  * MLPs: gated (SwiGLU/GeGLU), dense, MoE (top-k, shared experts), none.
+  * encoder-decoder (Seamless-M4T): bidirectional encoder + causal
+    decoder with cross-attention.
+
+Parameters are nested dicts with the reference's tree: the repeating
+``cfg.unit`` recipe's leaves are stacked on a leading repeat axis, and
+the reference's ``lax.scan`` over that axis is a Python loop over the
+repeat index here.  Weights take ``cfg.dtype``; norms, SSM decay and
+skip terms and the MoE router stay float32, as in the reference.
+Entry points: ``init_params`` / ``params_from_reference``, ``forward``
+/ ``logits_fn`` / ``lm_loss`` (forward only), ``prefill`` and
+``decode_step`` (serving).  The decode cache that ``prefill`` returns is
+allocated once at ``cache_len`` and ``decode_step`` updates it in place.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import LayerSpec, ModelConfig
+from ..kernels.backend import resolve_device
+from . import ssm as ssm_mod
+from .layers import (AttnSpec, TensorSpec, apply_mrope, apply_rope,
+                     attention, cache_update, decode_attention, dense_mlp,
+                     gated_mlp, init_from_specs, moe_mlp, rms_norm, softcap,
+                     tree_map)
+from .perfopts import require_default
+
+Params = Dict[str, Any]
+
+def _sds(cfg: ModelConfig, shape, dtype=None) -> TensorSpec:
+    """A leaf of ``cfg.dtype`` unless ``dtype`` says otherwise."""
+    return TensorSpec(tuple(shape), dtype or cfg.dtype)
+
+
+F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs
+# ---------------------------------------------------------------------------
+
+def _attn_specs(cfg: ModelConfig):
+    d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    sp = {"wq": _sds(cfg, (d, h * hd)), "wk": _sds(cfg, (d, k * hd)),
+          "wv": _sds(cfg, (d, k * hd)), "wo": _sds(cfg, (h * hd, d))}
+    if cfg.qkv_bias:
+        sp.update({"bq": _sds(cfg, (h * hd,)), "bk": _sds(cfg, (k * hd,)),
+                   "bv": _sds(cfg, (k * hd,))})
+    return sp
+
+
+def _mla_specs(cfg: ModelConfig):
+    d, h = cfg.d_model, cfg.n_heads
+    qd = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return {"wq": _sds(cfg, (d, h * qd)),
+            "w_dkv": _sds(cfg, (d, cfg.kv_lora + cfg.qk_rope_dim)),
+            "kv_norm": _sds(cfg, (cfg.kv_lora,), F32),
+            "w_uk": _sds(cfg, (cfg.kv_lora, h * cfg.qk_nope_dim)),
+            "w_uv": _sds(cfg, (cfg.kv_lora, h * cfg.v_head_dim)),
+            "wo": _sds(cfg, (h * cfg.v_head_dim, d))}
+
+
+def _ssm_specs(cfg: ModelConfig):
+    d = cfg.d_model
+    di = cfg.d_inner
+    h = cfg.n_ssm_heads
+    n = cfg.ssm_state
+    return {"w_z": _sds(cfg, (d, di)), "w_x": _sds(cfg, (d, di)),
+            "w_B": _sds(cfg, (d, n)), "w_C": _sds(cfg, (d, n)),
+            "w_dt": _sds(cfg, (d, h)),
+            "A_log": _sds(cfg, (h,), F32), "D_skip": _sds(cfg, (h,), F32),
+            "dt_bias": _sds(cfg, (h,), F32),
+            "ssm_norm": _sds(cfg, (di,), F32),
+            "out_proj": _sds(cfg, (di, d))}
+
+
+def _mlp_specs(cfg: ModelConfig, kind: str):
+    d, f = cfg.d_model, cfg.d_ff
+    if kind == "none":
+        return {}
+    if kind == "gated":
+        return {"wi": _sds(cfg, (d, f)), "wg": _sds(cfg, (d, f)),
+                "wo_mlp": _sds(cfg, (f, d))}
+    if kind == "dense":
+        return {"wi": _sds(cfg, (d, f)), "wo_mlp": _sds(cfg, (f, d))}
+    if kind == "moe":
+        e, fm = cfg.n_experts, cfg.moe_d_ff
+        sp = {"router": _sds(cfg, (d, e), F32),
+              "wi": _sds(cfg, (e, d, fm)), "wg": _sds(cfg, (e, d, fm)),
+              "wo_mlp": _sds(cfg, (e, fm, d))}
+        if cfg.n_shared_experts:
+            fs = fm * cfg.n_shared_experts
+            sp.update({"swi": _sds(cfg, (d, fs)), "swg": _sds(cfg, (d, fs)),
+                       "swo": _sds(cfg, (fs, d))})
+        return sp
+    raise ValueError(kind)
+
+
+def _layer_specs(cfg: ModelConfig, spec: LayerSpec, cross_attn: bool = False):
+    sp: Params = {"norm": _sds(cfg, (cfg.d_model,), F32)}
+    if spec.mixer == "attn":
+        sp.update(_attn_specs(cfg))
+    elif spec.mixer == "mla":
+        sp.update(_mla_specs(cfg))
+    elif spec.mixer == "ssm":
+        sp.update(_ssm_specs(cfg))
+    elif spec.mixer == "hybrid":
+        sp["attn"] = _attn_specs(cfg)
+        s = _ssm_specs(cfg)
+        del s["w_z"]                    # hymba branch: no gate path
+        sp["ssm"] = s
+        sp.update({"fuse_a": _sds(cfg, (cfg.d_model,), F32),
+                   "fuse_s": _sds(cfg, (cfg.d_model,), F32)})
+    else:
+        raise ValueError(spec.mixer)
+    if cross_attn:
+        sp["cross"] = _attn_specs(cfg)
+        sp["cross_norm"] = _sds(cfg, (cfg.d_model,), F32)
+    if spec.mlp != "none":
+        sp["mlp_norm"] = _sds(cfg, (cfg.d_model,), F32)
+        sp.update(_mlp_specs(cfg, spec.mlp))
+    return sp
+
+
+def _stack(tree: Params, n: int) -> Params:
+    return tree_map(lambda x: TensorSpec((n,) + x.shape, x.dtype), tree)
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """The parameter tree's ``TensorSpec`` leaves: the reference's tree
+    and shapes."""
+    sp: Params = {"embed": _sds(cfg, (cfg.vocab, cfg.d_model)),
+                  "final_norm": _sds(cfg, (cfg.d_model,), F32)}
+    if cfg.pre:
+        sp["pre"] = tuple(_layer_specs(cfg, spec) for spec in cfg.pre)
+    r = cfg.n_unit_repeats
+    sp["unit"] = {f"u{i}": _stack(_layer_specs(cfg, spec,
+                                               cross_attn=cfg.enc_dec), r)
+                  for i, spec in enumerate(cfg.unit)}
+    if cfg.enc_dec:
+        es = _layer_specs(cfg, LayerSpec(mixer="attn", mlp="dense"))
+        sp["enc_unit"] = _stack(es, cfg.n_enc_layers)
+        sp["enc_norm"] = _sds(cfg, (cfg.d_model,), F32)
+    return sp
+
+
+def _fix_ssm_init(params: Params) -> Params:
+    """SSM decay init: A in [-1, -e] keeps exp(dt*A) in (0,1)."""
+    for key, val in params.items():
+        if isinstance(val, dict):
+            _fix_ssm_init(val)
+        elif isinstance(val, tuple):
+            for v in val:
+                _fix_ssm_init(v)
+        elif key == "A_log":
+            val.zero_()                       # A = -1
+        elif key == "dt_bias":
+            val.fill_(-2.0)                   # small positive dt
+    return params
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> Params:
+    """Scaled-normal parameters drawn on ``device`` (default the card)
+    from ``generator``, which lives on that device, with the reference's
+    SSM fix-ups (``A_log`` = 0, ``dt_bias`` = -2)."""
+    dev = resolve_device(device)
+    with torch.no_grad():
+        return _fix_ssm_init(init_from_specs(param_specs(cfg), generator,
+                                             dev))
+
+
+def params_from_reference(tree: Params, cfg: ModelConfig,
+                          device=None) -> Params:
+    """The JAX package's parameter tree (numpy or array-like leaves, any
+    float dtype including bfloat16) as this package's, on ``device``:
+    each leaf goes through float32 to the port's dtype for it."""
+    dev = resolve_device(device)
+
+    def walk(spec, ref, path):
+        if isinstance(spec, dict):
+            if set(spec) != set(ref):
+                raise KeyError(f"{path or 'params'}: keys {sorted(ref)} "
+                               f"where {sorted(spec)} were expected")
+            return {k: walk(spec[k], ref[k], f"{path}/{k}") for k in spec}
+        if isinstance(spec, tuple):
+            if len(spec) != len(ref):
+                raise KeyError(f"{path}: {len(ref)} entries, expected "
+                               f"{len(spec)}")
+            return tuple(walk(s, r, f"{path}/{i}")
+                         for i, (s, r) in enumerate(zip(spec, ref)))
+        arr = np.array(ref, dtype=np.float32)
+        if arr.shape != spec.shape:
+            raise ValueError(f"{path}: shape {arr.shape}, expected "
+                             f"{spec.shape}")
+        return torch.from_numpy(arr).to(device=dev, dtype=spec.dtype)
+    return walk(param_specs(cfg), tree, "")
+
+
+# ---------------------------------------------------------------------------
+# Mixers (forward, full sequence)
+# ---------------------------------------------------------------------------
+
+def _attn_spec(cfg: ModelConfig, spec: LayerSpec, causal: bool = True):
+    return AttnSpec(causal=causal, window=spec.window,
+                    logit_softcap=cfg.attn_softcap)
+
+
+def _qkv(p: Params, cfg: ModelConfig, x: torch.Tensor):
+    b, s, _ = x.shape
+    h, k, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, kk, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, kk, v = q + p["bq"], kk + p["bk"], v + p["bv"]
+    return (q.reshape(b, s, h, hd), kk.reshape(b, s, k, hd),
+            v.reshape(b, s, k, hd))
+
+
+def _rope_qk(cfg: ModelConfig, q, k, positions, positions3):
+    if cfg.mrope and positions3 is not None:
+        q = apply_mrope(q, positions3, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, positions3, cfg.mrope_sections, cfg.rope_theta)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k
+
+
+def attn_mixer(p: Params, cfg: ModelConfig, spec: LayerSpec, x, positions,
+               positions3=None, causal=True):
+    # the attention-resharding lever places activations on a mesh
+    require_default("attn_reshard", "mesh")
+    q, k, v = _qkv(p, cfg, x)
+    q, k = _rope_qk(cfg, q, k, positions, positions3)
+    out = attention(q, k, v, _attn_spec(cfg, spec, causal))
+    b, s, _, _ = q.shape
+    y = out.reshape(b, s, -1) @ p["wo"]
+    return y, {"k": k, "v": v}
+
+
+def mla_mixer(p: Params, cfg: ModelConfig, spec: LayerSpec, x, positions):
+    b, s, d = x.shape
+    h = cfg.n_heads
+    nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q = (x @ p["wq"]).reshape(b, s, h, nd + rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    dkv = x @ p["w_dkv"]
+    ckv, k_rope = dkv[..., :cfg.kv_lora], dkv[..., cfg.kv_lora:]
+    ckv = rms_norm(ckv, p["kv_norm"])
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)                   # (B,S,1,rd)
+    k_nope = (ckv @ p["w_uk"]).reshape(b, s, h, nd)
+    v = (ckv @ p["w_uv"]).reshape(b, s, h, vd)
+
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    kf = torch.cat([k_nope, k_rope.expand(b, s, h, rd)], dim=-1)
+    out = attention(qf, kf, v, _attn_spec(cfg, spec))
+    y = out.reshape(b, s, h * vd) @ p["wo"]
+    return y, {"ckv": ckv, "kr": k_rope[:, :, 0, :]}
+
+
+def _ssm_inputs(p: Params, cfg: ModelConfig, x):
+    xs = x @ p["w_x"]
+    B = x @ p["w_B"]
+    C = x @ p["w_C"]
+    dt = F.softplus((x @ p["w_dt"]).float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    return xs, B, C, dt, A
+
+
+def ssm_mixer(p: Params, cfg: ModelConfig, x, gated: bool = True):
+    b, s, _ = x.shape
+    h, hp = cfg.n_ssm_heads, cfg.ssm_headdim
+    xs, B, C, dt, A = _ssm_inputs(p, cfg, x)
+    y = ssm_mod.ssd_scan(xs.reshape(b, s, h, hp), dt, A, B, C,
+                         p["D_skip"], cfg.ssm_chunk).reshape(b, s, -1)
+    if gated and "w_z" in p:
+        y = y * F.silu(x @ p["w_z"])
+    y = rms_norm(y, p["ssm_norm"])
+    return y @ p["out_proj"]
+
+
+def hybrid_mixer(p: Params, cfg: ModelConfig, spec: LayerSpec, x, positions):
+    ya, kv = attn_mixer(p["attn"], cfg, spec, x, positions)
+    ys = ssm_mixer(p["ssm"], cfg, x, gated=False)
+    y = 0.5 * (rms_norm(ya, p["fuse_a"]) + rms_norm(ys, p["fuse_s"]))
+    return y, kv
+
+
+def mlp_block(p: Params, cfg: ModelConfig, spec: LayerSpec, x):
+    if spec.mlp == "none":
+        return None
+    h = rms_norm(x, p["mlp_norm"])
+    if spec.mlp == "gated":
+        return gated_mlp(h, p["wi"], p["wg"], p["wo_mlp"], cfg.act)
+    if spec.mlp == "dense":
+        return dense_mlp(h, p["wi"], p["wo_mlp"], cfg.act)
+    shared = (p["swi"], p["swg"], p["swo"]) if "swi" in p else None
+    return moe_mlp(h, p["router"], p["wi"], p["wg"], p["wo_mlp"],
+                   cfg.top_k, cfg.act, shared)
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence layer + stack
+# ---------------------------------------------------------------------------
+
+def _repeat(tree: Params, j: int) -> Params:
+    """Repeat ``j`` of a stacked tree (views, so writes reach the stack)."""
+    return tree_map(lambda t: t[j], tree)
+
+
+def _cross_kv(p: Params, cfg: ModelConfig, enc_out):
+    b, se, _ = enc_out.shape
+    ck = (enc_out @ p["cross"]["wk"]).reshape(b, se, cfg.n_kv_heads,
+                                              cfg.head_dim)
+    cv = (enc_out @ p["cross"]["wv"]).reshape(b, se, cfg.n_kv_heads,
+                                              cfg.head_dim)
+    return ck, cv
+
+
+def layer_forward(p: Params, cfg: ModelConfig, spec: LayerSpec, x,
+                  positions, positions3=None, enc_out=None):
+    """One transformer layer; returns (x, the mixer's K/V or None)."""
+    h = rms_norm(x, p["norm"])
+    if spec.mixer == "attn":
+        y, kv = attn_mixer(p, cfg, spec, h, positions, positions3)
+    elif spec.mixer == "mla":
+        y, kv = mla_mixer(p, cfg, spec, h, positions)
+    elif spec.mixer == "ssm":
+        y, kv = ssm_mixer(p, cfg, h), None
+    elif spec.mixer == "hybrid":
+        y, kv = hybrid_mixer(p, cfg, spec, h, positions)
+    else:
+        raise ValueError(spec.mixer)
+    x = x + y
+
+    if enc_out is not None:                      # decoder cross-attention
+        hc = rms_norm(x, p["cross_norm"])
+        q, _, _ = _qkv(p["cross"], cfg, hc)
+        ck, cv = _cross_kv(p, cfg, enc_out)
+        out = attention(q, ck, cv, AttnSpec(causal=False))
+        x = x + out.reshape(*out.shape[:2], -1) @ p["cross"]["wo"]
+
+    y = mlp_block(p, cfg, spec, x)
+    if y is not None:
+        x = x + y
+    return x, kv
+
+
+def _cache_seq_len(cfg: ModelConfig, spec: LayerSpec, seq_len: int) -> int:
+    if spec.window is not None:
+        return min(seq_len, spec.window)
+    return seq_len
+
+
+def _embed(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
+    x = params["embed"][batch["tokens"]].to(cfg.dtype)
+    if cfg.vision_stub and "vision_embeds" in batch:
+        ve = batch["vision_embeds"].to(cfg.dtype)
+        x = x.clone()
+        x[:, :ve.shape[1]] = ve
+    return x
+
+
+def _positions(batch, s: int, device) -> torch.Tensor:
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, device=device)[None, :]
+    return positions
+
+
+def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            remat: bool = False) -> torch.Tensor:
+    """Token (+stub-modality) inputs -> final hidden states (B,S,D).
+
+    ``remat`` is accepted for the reference's signature: with no
+    autograd graph kept it changes nothing, but a non-default
+    ``remat_policy`` still raises."""
+    if remat:
+        require_default("remat_policy")
+    x = _embed(params, cfg, batch)
+    positions = _positions(batch, x.shape[1], x.device)
+    positions3 = batch.get("positions3")
+
+    enc_out = None
+    if cfg.enc_dec:
+        enc_out = encode(params, cfg, batch["enc_embeds"], remat=remat)
+
+    for p, spec in zip(params.get("pre", ()), cfg.pre):
+        x, _ = layer_forward(p, cfg, spec, x, positions, positions3, None)
+
+    for j in range(cfg.n_unit_repeats):
+        for i, spec in enumerate(cfg.unit):
+            x, _ = layer_forward(_repeat(params["unit"][f"u{i}"], j), cfg,
+                                 spec, x, positions, positions3, enc_out)
+    return rms_norm(x, params["final_norm"])
+
+
+def encode(params: Params, cfg: ModelConfig, enc_embeds: torch.Tensor,
+           remat: bool = False) -> torch.Tensor:
+    if remat:
+        require_default("remat_policy")
+    x = enc_embeds.to(cfg.dtype)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    spec = LayerSpec(mixer="attn", mlp="dense")
+    for j in range(cfg.n_enc_layers):
+        p = _repeat(params["enc_unit"], j)
+        h = rms_norm(x, p["norm"])
+        y, _ = attn_mixer(p, cfg, spec, h, positions, causal=False)
+        x = x + y
+        x = x + mlp_block(p, cfg, spec, x)
+    return rms_norm(x, params["enc_norm"])
+
+
+# ---------------------------------------------------------------------------
+# Loss (chunked over sequence to bound the logits temp)
+# ---------------------------------------------------------------------------
+
+def logits_fn(params: Params, cfg: ModelConfig,
+              x: torch.Tensor) -> torch.Tensor:
+    """Tied-embedding logits in float32, with the logit softcap."""
+    logits = (x @ params["embed"].T).float()
+    return softcap(logits, cfg.logit_softcap)
+
+
+def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            chunk: int = 512, remat: bool = True) -> torch.Tensor:
+    """Mean next-token cross-entropy, chunked over the sequence (forward
+    only: no gradient path is ported yet)."""
+    x = forward(params, cfg, batch, remat=remat)
+    labels = batch["labels"]
+    b, s, d = x.shape
+    c = min(chunk, s)
+    nc = s // c
+    tot = torch.zeros((), dtype=F32, device=x.device)
+    cnt = 0
+    for i in range(nc):
+        logits = logits_fn(params, cfg, x[:, i * c:(i + 1) * c])
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.take_along_dim(
+            logits, labels[:, i * c:(i + 1) * c, None].long(), dim=-1)[..., 0]
+        tot = tot + torch.sum(lse - ll)
+        cnt += lse.numel()
+    return tot / cnt
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache specs, prefill, decode
+# ---------------------------------------------------------------------------
+
+def _layer_cache_specs(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                       seq_len: int):
+    cl = _cache_seq_len(cfg, spec, seq_len)
+    k, hd = cfg.n_kv_heads, cfg.head_dim
+    state = _sds(cfg, (batch, cfg.n_ssm_heads, cfg.ssm_headdim,
+                       cfg.ssm_state), F32)
+    if spec.mixer == "attn":
+        return {"k": _sds(cfg, (batch, cl, k, hd)),
+                "v": _sds(cfg, (batch, cl, k, hd))}
+    if spec.mixer == "mla":
+        return {"ckv": _sds(cfg, (batch, cl, cfg.kv_lora)),
+                "kr": _sds(cfg, (batch, cl, cfg.qk_rope_dim))}
+    if spec.mixer == "ssm":
+        return {"h": state}
+    if spec.mixer == "hybrid":
+        return {"k": _sds(cfg, (batch, cl, k, hd)),
+                "v": _sds(cfg, (batch, cl, k, hd)), "h": state}
+    raise ValueError(spec.mixer)
+
+
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int,
+                enc_len: int = 0) -> Params:
+    """The decode cache's ``TensorSpec`` tree (the reference's tree and
+    shapes; K/V in ``cfg.dtype``, SSM states in float32)."""
+    sp: Params = {}
+    if cfg.pre:
+        sp["pre"] = tuple(_layer_cache_specs(cfg, spec, batch, seq_len)
+                          for spec in cfg.pre)
+    r = cfg.n_unit_repeats
+    sp["unit"] = {f"u{i}": _stack(_layer_cache_specs(cfg, spec, batch,
+                                                     seq_len), r)
+                  for i, spec in enumerate(cfg.unit)}
+    if cfg.enc_dec:
+        k, hd = cfg.n_kv_heads, cfg.head_dim
+        sp["cross"] = {"k": _sds(cfg, (r, batch, enc_len, k, hd)),
+                       "v": _sds(cfg, (r, batch, enc_len, k, hd))}
+    return sp
+
+
+def _decode_mixer(p, cfg, spec, h, cache, pos: int, positions3=None):
+    """One-token mixer against the cache, which it updates in place;
+    returns y."""
+    b = h.shape[0]
+    if spec.mixer in ("attn", "hybrid"):
+        ap = p["attn"] if spec.mixer == "hybrid" else p
+        q, k, v = _qkv(ap, cfg, h)
+        posv = torch.full((b, 1), pos, device=h.device)
+        if cfg.mrope and positions3 is not None:
+            q = apply_mrope(q, positions3, cfg.mrope_sections, cfg.rope_theta)
+            k = apply_mrope(k, positions3, cfg.mrope_sections, cfg.rope_theta)
+        else:
+            q = apply_rope(q, posv, cfg.rope_theta)
+            k = apply_rope(k, posv, cfg.rope_theta)
+        cl = cache["k"].shape[1]
+        slot = pos if spec.window is None else pos % cl
+        aspec = AttnSpec(causal=True, window=None,
+                         logit_softcap=cfg.attn_softcap)
+        cache_update(cache["k"], k, slot)
+        cache_update(cache["v"], v, slot)
+        # rolling window cache: slots < min(pos+1, cl) are valid
+        length = pos + 1 if spec.window is None else min(pos + 1, cl)
+        out = decode_attention(q, cache["k"], cache["v"], length, aspec)
+        ya = out.reshape(b, 1, -1) @ ap["wo"]
+        if spec.mixer == "attn":
+            return ya
+        # hybrid: add the SSM branch
+        ys = _decode_ssm(p["ssm"], cfg, h, cache, gated=False)
+        return 0.5 * (rms_norm(ya, p["fuse_a"]) + rms_norm(ys, p["fuse_s"]))
+
+    if spec.mixer == "ssm":
+        return _decode_ssm(p, cfg, h, cache, gated=True)
+
+    if spec.mixer == "mla":
+        # absorbed MLA decode: score against the compressed cache directly
+        nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        hH = cfg.n_heads
+        q = (h @ p["wq"]).reshape(b, 1, hH, nd + rd)
+        q_nope, q_rope = q[..., :nd], q[..., nd:]
+        posv = torch.full((b, 1), pos, device=h.device)
+        q_rope = apply_rope(q_rope, posv, cfg.rope_theta)
+        dkv = h @ p["w_dkv"]
+        ckv_new = rms_norm(dkv[..., :cfg.kv_lora], p["kv_norm"])
+        kr_new = apply_rope(dkv[:, :, None, cfg.kv_lora:], posv,
+                            cfg.rope_theta)[:, :, 0]
+        ckv = cache_update(cache["ckv"], ckv_new, pos)
+        kr = cache_update(cache["kr"], kr_new, pos)
+        # absorb W_uk into q: q' = q_nope @ W_uk^T  -> (B,H,lora)
+        w_uk = p["w_uk"].reshape(cfg.kv_lora, hH, nd)
+        q_abs = torch.einsum("bhd,lhd->bhl", q_nope[:, 0], w_uk)
+        scores = (torch.einsum("bhl,bsl->bhs", q_abs.float(), ckv.float())
+                  + torch.einsum("bhr,bsr->bhs", q_rope[:, 0].float(),
+                                 kr.float()))
+        valid = torch.arange(ckv.shape[1], device=h.device)[None] < pos + 1
+        scores = scores / math.sqrt(nd + rd)
+        scores = torch.where(valid[:, None], scores, -1e30)
+        pr = torch.softmax(scores, dim=-1)
+        ctx = torch.einsum("bhs,bsl->bhl", pr, ckv.float())   # (B,H,lora)
+        w_uv = p["w_uv"].reshape(cfg.kv_lora, hH, vd)
+        out = torch.einsum("bhl,lhd->bhd", ctx, w_uv.float()).to(h.dtype)
+        return (out.reshape(b, hH * vd) @ p["wo"])[:, None]
+
+    raise ValueError(spec.mixer)
+
+
+def _decode_ssm(p, cfg, h, cache, gated: bool):
+    """One SSM step from ``cache["h"]``, which it replaces in place."""
+    b = h.shape[0]
+    xs = (h @ p["w_x"])[:, 0]
+    B = (h @ p["w_B"])[:, 0]
+    C = (h @ p["w_C"])[:, 0]
+    dt = F.softplus((h @ p["w_dt"])[:, 0].float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    hs, hp_ = cfg.n_ssm_heads, cfg.ssm_headdim
+    hn, y = ssm_mod.ssd_decode_step(cache["h"], xs.reshape(b, hs, hp_),
+                                    dt, A, B, C, p["D_skip"])
+    cache["h"].copy_(hn)
+    y = y.reshape(b, 1, -1)
+    if gated and "w_z" in p:
+        y = y * F.silu((h @ p["w_z"])[:, 0])[:, None]
+    y = rms_norm(y, p["ssm_norm"])
+    return y @ p["out_proj"]
+
+
+def _decode_layer(p, cfg, spec, x, c, pos, positions3, cross_kv=None):
+    h = rms_norm(x, p["norm"])
+    x = x + _decode_mixer(p, cfg, spec, h, c, pos, positions3)
+    if cfg.enc_dec and cross_kv is not None:
+        hc = rms_norm(x, p["cross_norm"])
+        q, _, _ = _qkv(p["cross"], cfg, hc)
+        out = decode_attention(q, cross_kv["k"], cross_kv["v"],
+                               cross_kv["k"].shape[1],
+                               AttnSpec(causal=False))
+        x = x + out.reshape(x.shape[0], 1, -1) @ p["cross"]["wo"]
+    y = mlp_block(p, cfg, spec, x)
+    return x if y is None else x + y
+
+
+def decode_step(params: Params, cfg: ModelConfig, cache: Params,
+                batch: Dict[str, torch.Tensor], pos: int):
+    """One token for every sequence in the batch, at position ``pos``.
+
+    batch: {"tokens": (B,1)} (+ positions3 for M-RoPE).
+    Returns (logits (B,1,V) fp32, cache) — the cache is updated in place
+    and returned.
+    """
+    require_default("decode_opt", "kv_quant_int8")
+    pos = int(pos)
+    x = _embed(params, cfg, {"tokens": batch["tokens"]})
+    positions3 = batch.get("positions3")
+
+    for p, spec, c in zip(params.get("pre", ()), cfg.pre,
+                          cache.get("pre", ())):
+        x = _decode_layer(p, cfg, spec, x, c, pos, positions3)
+
+    cross = cache.get("cross")
+    for j in range(cfg.n_unit_repeats):
+        for i, spec in enumerate(cfg.unit):
+            key = f"u{i}"
+            x = _decode_layer(_repeat(params["unit"][key], j), cfg, spec, x,
+                              _repeat(cache["unit"][key], j), pos, positions3,
+                              None if cross is None else _repeat(cross, j))
+    x = rms_norm(x, params["final_norm"])
+    return logits_fn(params, cfg, x), cache
+
+
+def _fill_cache_entry(entry: Params, kv: Optional[Params]) -> None:
+    """Write prefill-computed K/V into a cache entry: keep the last
+    ``cache_len`` positions (window layers keep the window), the rest of
+    the entry stays zero."""
+    for key, val in (kv or {}).items():
+        s, cache_len = val.shape[1], entry[key].shape[1]
+        keep = min(cache_len, s)
+        entry[key][:, :keep] = val[:, s - keep:]
+
+
+def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            cache_len: Optional[int] = None):
+    """Run the full prompt, return (last-position logits, decode cache).
+
+    The cache is allocated once at ``cache_len`` (default the prompt
+    length) for ``decode_step`` to update in place.  SSM/hybrid states
+    come from running the chunked recurrence over the prompt."""
+    require_default("kv_quant_int8")
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    cache_len = cache_len or s
+    x = _embed(params, cfg, batch)
+    positions = _positions(batch, s, x.device)
+    positions3 = batch.get("positions3")
+
+    enc_out = None
+    enc_len = 0
+    if cfg.enc_dec:
+        enc_out = encode(params, cfg, batch["enc_embeds"])
+        enc_len = enc_out.shape[1]
+    cache = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                           device=x.device),
+                     cache_specs(cfg, b, cache_len, enc_len))
+
+    for p, spec, c in zip(params.get("pre", ()), cfg.pre,
+                          cache.get("pre", ())):
+        xin = x
+        x, kv = layer_forward(p, cfg, spec, x, positions, positions3,
+                              enc_out)
+        _fill_cache_entry(c, kv)
+        _prefill_ssm_state(p, cfg, spec, c, xin)
+
+    for j in range(cfg.n_unit_repeats):
+        for i, spec in enumerate(cfg.unit):
+            p = _repeat(params["unit"][f"u{i}"], j)
+            c = _repeat(cache["unit"][f"u{i}"], j)
+            xin = x
+            x, kv = layer_forward(p, cfg, spec, x, positions, positions3,
+                                  enc_out)
+            _fill_cache_entry(c, kv)
+            _prefill_ssm_state(p, cfg, spec, c, xin)
+            if cfg.enc_dec:
+                ck, cv = _cross_kv(p, cfg, enc_out)
+                cache["cross"]["k"][j] = ck
+                cache["cross"]["v"][j] = cv
+    x = rms_norm(x, params["final_norm"])
+    return logits_fn(params, cfg, x[:, -1:]), cache
+
+
+def _prefill_ssm_state(p, cfg, spec, c, xin) -> None:
+    """Write the post-prompt SSM state into a prefill cache entry."""
+    if spec.mixer not in ("ssm", "hybrid"):
+        return
+    pp = p["ssm"] if spec.mixer == "hybrid" else p
+    h = rms_norm(xin, p["norm"])
+    b, s, _ = h.shape
+    hs, hp_ = cfg.n_ssm_heads, cfg.ssm_headdim
+    xs, B, _, dt, A = _ssm_inputs(pp, cfg, h)
+    c["h"].copy_(ssm_mod.ssd_final_state(xs.reshape(b, s, hs, hp_), dt, A,
+                                         B, cfg.ssm_chunk))

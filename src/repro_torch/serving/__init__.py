@@ -1,10 +1,11 @@
-"""Serving subsystem: shared request primitives, the single-workload
-CIM batch service, the single-chip multi-tenant fleet and the
-cross-chip cluster (2-D tenancy planner -> engine pools -> dynamic
-batchers -> routers), plus Chrome-trace observability and synthetic
-diurnal+bursty traffic generation."""
+"""Serving subsystem: shared request primitives, the LM batch server,
+the single-workload CIM batch service, the single-chip multi-tenant
+fleet and the cross-chip cluster (2-D tenancy planner -> engine pools
+-> dynamic batchers -> routers), plus Chrome-trace observability and
+synthetic diurnal+bursty traffic generation."""
 from .common import (BaseRequest, CimRequest, LmRequest,        # noqa: F401
                      ServiceStats)
+from .server import BatchServer, Request                        # noqa: F401
 from .cim_service import CimBatchService                        # noqa: F401
 from .placement import (FleetPlan, TenancyPlan,                 # noqa: F401
                         TenantPlacement, TenantSpec, plan_fleet,

@@ -20,9 +20,8 @@ WORKLOADS = {
 
 def get_workload(name: str, **kw):
     if name.startswith("lmblock:"):
-        raise NotImplementedError(
-            f"{name!r}: the LM block workloads need the LM configs, which "
-            "this package does not have yet")
+        from .lm_blocks import lm_block
+        return lm_block(name.split(":", 1)[1], **kw)
     if name not in WORKLOADS:
         raise KeyError(f"unknown workload {name!r}; have {sorted(WORKLOADS)}")
     return WORKLOADS[name](**kw)

@@ -3,7 +3,9 @@ the CPU.
 
 Every case runs the same graphs, archs, design spaces and seeds through
 ``repro.dse`` and ``repro_torch.dse`` in one process and requires equal
-results, tolerance 0: the workload graphs, the §4.2 baseline plans, the
+results, tolerance 0: the workload graphs (the LM decoder blocks too,
+with the reduced qwen1.5-4b block verified bit for bit), the §4.2
+baseline plans, the
 design points, the Pareto frontier, the batched proxy, the sweep, the
 successive-halving and adaptive searches, campaigns with the winning
 point verified, the fault metric and the scorecards.  The port runs
@@ -23,16 +25,23 @@ from repro.cimsim import faults as jfaults
 from repro.cimsim import perf as jperf
 from repro.core import abstraction as ja
 from repro.core import baselines as jbase
+from repro.configs import ARCHS as JARCHS
+from repro.configs import get_config as jget_config
+from repro.configs import reduced as jreduced
 from repro.core import compiler as jcompiler
 from repro.workloads import get_workload as jwl
+from repro.workloads import lm_blocks as jlm_blocks
 from repro_torch import dse as tdse
 from repro_torch.cimsim import executor as tex
 from repro_torch.cimsim import faults as tfaults
 from repro_torch.cimsim import perf as tperf
 from repro_torch.core import abstraction as ta
 from repro_torch.core import baselines as tbase
+from repro_torch.configs import get_config as tget_config
+from repro_torch.configs import reduced as treduced
 from repro_torch.core import compiler as tcompiler
 from repro_torch.workloads import get_workload as twl
+from repro_torch.workloads import lm_blocks as tlm_blocks
 
 
 def _arch(mod, kind: str):
@@ -92,11 +101,133 @@ def test_workload_graphs_match_reference(name):
     assert got.shapes == want.shapes
 
 
-def test_lm_block_workloads_say_they_are_not_ported():
-    with pytest.raises(NotImplementedError, match="LM configs"):
-        twl("lmblock:gemma2-2b")
-    with pytest.raises(KeyError):
-        twl("nope")
+@pytest.mark.parametrize("name", sorted(JARCHS) + ["nope"])
+def test_lm_block_graphs_match_reference(name):
+    """Each architecture's decoder block is the reference's graph; an
+    unknown workload or architecture raises ``KeyError`` in both."""
+    if name == "nope":
+        for bad in ("nope", "lmblock:nope"):
+            with pytest.raises(KeyError):
+                jwl(bad)
+            with pytest.raises(KeyError):
+                twl(bad)
+        return
+    want, got = jwl(f"lmblock:{name}"), twl(f"lmblock:{name}")
+    assert got.to_dict() == want.to_dict()
+    assert got.shapes == want.shapes
+
+
+def test_lm_block_compile_key_matches_reference():
+    name = "lmblock:qwen1.5-4b"
+    assert tcompiler.compile_key(twl(name), ta.get_arch("jia-issc21")) == \
+        jcompiler.compile_key(jwl(name), ja.get_arch("jia-issc21"))
+
+
+def _patch_lm_blocks(monkeypatch, jcut, tcut):
+    """Build the LM blocks from ``jcut(config)`` in the reference and
+    ``tcut(config)`` in the port."""
+    monkeypatch.setattr(jlm_blocks, "get_config",
+                        lambda n: jcut(jget_config(n)))
+    monkeypatch.setattr(tlm_blocks, "get_config",
+                        lambda n: tcut(tget_config(n)))
+
+
+@pytest.fixture
+def reduced_lm_blocks(monkeypatch):
+    """Both packages' LM blocks built from ``reduced()`` configs."""
+    _patch_lm_blocks(monkeypatch, jreduced, treduced)
+
+
+def _verify_lm_block_both(name: str, **kw):
+    """``compile_and_verify`` of one LM block on jia-issc21 at batch 2 in
+    both packages, and both executors' outputs on the same weights,
+    shifts and inputs: (reference report, port report, reference
+    outputs, port outputs)."""
+    from repro.cimsim import executor as jex
+    from repro.cimsim import functional as jfn
+    from repro.kernels.cim_mvm import cim_mvm_params as jparams
+    from repro_torch.cimsim import functional as tfn
+    from repro_torch.kernels.cim_mvm import cim_mvm_params as tparams
+    jg, tg = jwl(name, **kw), twl(name, **kw)
+    jarch, tarch = ja.get_arch("jia-issc21"), ta.get_arch("jia-issc21")
+    jrep = jfn.compile_and_verify(jg, jarch, batch=2)
+    trep = tfn.compile_and_verify(tg, tarch, batch=2, device="cpu")
+
+    weights = jfn.make_weights(jg, 0)
+    inputs = [jfn.make_input(jg, i) for i in range(2)]
+    batched = {k: np.stack([x[k] for x in inputs]) for k in jg.inputs}
+    shifts = jfn.calibrate_shifts(jg, weights, inputs[0], jparams(jarch))
+    assert tfn.calibrate_shifts(tg, weights, inputs[0], tparams(tarch),
+                                device="cpu") == shifts
+    jres = jcompiler.compile_graph(jg, jarch)
+    tres = tcompiler.compile_graph(tg, tarch)
+    want = jex.lower(jres.plan, jres.program, params=jparams(jarch)) \
+        .run_batch(batched, weights, shifts)
+    exe = tex.lower(tres.plan, tres.program, params=tparams(tarch),
+                    device="cpu")
+    assert exe.stats.matmul_nodes == 0         # saturating: the MVM route
+    return jrep, trep, want, exe.run_batch(batched, weights, shifts)
+
+
+def test_reduced_lm_block_verifies_bit_equal_to_reference(reduced_lm_blocks):
+    """The reduced qwen1.5-4b block on jia-issc21 verifies with
+    ``max_abs_err`` 0 in both packages, and the two executors' outputs
+    are bit-equal."""
+    jrep, trep, want, got = _verify_lm_block_both("lmblock:qwen1.5-4b")
+    assert jrep.max_abs_err == trep.max_abs_err == {"res2.out": 0}
+    np.testing.assert_array_equal(got["res2.out"], want["res2.out"])
+
+
+def test_wide_lm_block_verify_error_matches_reference(monkeypatch):
+    """A reference property, not a port fault: at qwen1.5-4b's d = 2560
+    the reference forward groups each weight matrix's rows by
+    ``parallel_row`` (1152) over the whole matrix while the compiled
+    flow reads 852-854-row chunks, and jia's 8-bit ADC saturates
+    differently on the two, so the reference's own ``compile_and_verify``
+    reports a nonzero error.  The port reports the same error and its
+    executor's outputs are the reference's, bit for bit (the block is
+    cut to 2 heads of 64 and d_ff 256 at seq 16; d stays 2560)."""
+    def cut(cfg):
+        return dataclasses.replace(cfg, n_heads=2, n_kv_heads=2,
+                                   head_dim=64, d_ff=256)
+    _patch_lm_blocks(monkeypatch, cut, cut)
+    jrep, trep, want, got = _verify_lm_block_both("lmblock:qwen1.5-4b",
+                                                  seq=16)
+    assert trep.max_abs_err == jrep.max_abs_err == {"res2.out": 131}
+    np.testing.assert_array_equal(got["res2.out"], want["res2.out"])
+    # the cause: with an ADC that never saturates (11 bits over 1152
+    # rows), or at d = 2304 (two whole 1152-row chunks), the error is 0
+    from repro_torch.cimsim import functional as tfn
+    jia = ta.get_arch("jia-issc21")
+    exact = dataclasses.replace(jia, xb=dataclasses.replace(jia.xb,
+                                                            adc_bits=11))
+    for arch, d in ((exact, 2560), (jia, 2304)):
+        monkeypatch.setattr(tlm_blocks, "get_config", lambda n, d=d: cut(
+            dataclasses.replace(tget_config(n), d_model=d)))
+        rep = tfn.compile_and_verify(twl("lmblock:qwen1.5-4b", seq=16),
+                                     arch, batch=2, device="cpu")
+        assert rep.max_abs_err == {"res2.out": 0}, (arch.xb, d)
+
+
+@pytest.mark.parametrize("name,match", [
+    ("gemma2-2b", "mismatch in its core dimension"),
+    ("mamba2-780m", "no float DCOM for SSMScan")])
+def test_lm_block_reference_limits_carry_over(name, match,
+                                              reduced_lm_blocks):
+    """Reference limits, not port faults: the GQA block's ``qkt`` puts
+    ``h*hd``-wide queries against ``k*hd``-wide keys, and the SSM block's
+    ``SSMScan`` has no float DCOM; both packages raise the same
+    ``ValueError``."""
+    from repro.cimsim import functional as jfn
+    from repro_torch.cimsim import functional as tfn
+    errors = []
+    for fn, wl, arch, kw in (
+            (jfn, jwl, ja, {}), (tfn, twl, ta, {"device": "cpu"})):
+        with pytest.raises(ValueError, match=match) as err:
+            fn.compile_and_verify(wl(f"lmblock:{name}"),
+                                  arch.get_arch("jia-issc21"), batch=2, **kw)
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]
 
 
 # ------------------------------------------------------------ baselines

@@ -2,9 +2,9 @@
 
 An AST scan finds no import of ``jax`` or ``repro`` in the port's
 package or in ``chip_smoke.py``; the package imports in a process where
-both are blocked; entry points asked for the default device raise
-when there is no CUDA card; and the port's compile store is its own and
-refuses the JAX package's entries.
+both are blocked; entry points asked for the default device (the LM
+model's and server's too) raise when there is no CUDA card; and the
+port's compile store is its own and refuses the JAX package's entries.
 """
 import ast
 import pathlib
@@ -63,6 +63,16 @@ def test_package_imports_with_jax_and_repro_blocked():
         "                             space)\n"
         "from repro_torch.obs import explain\n"
         "from repro_torch.core import baselines\n"
+        "import torch, repro_torch.configs, repro_torch.models.lm\n"
+        "from repro_torch.serving import server\n"
+        "from repro_torch.configs import get_config, reduced\n"
+        "cfg = reduced(get_config('hymba-1.5b'))\n"
+        "p = repro_torch.models.lm.init_params(cfg, torch.Generator(),\n"
+        "                                    device='cpu')\n"
+        "assert cfg.param_count() > 0\n"
+        "req = server.Request(0, prompt=[1, 2, 3], max_new_tokens=2)\n"
+        "server.BatchServer(cfg, p, device='cpu').serve([req])\n"
+        "assert len(req.output) == 2\n"
         "res = compiler.compile_graph(get_workload('tiny_mlp'),\n"
         "                             get_arch('toy'))\n"
         "camp = dse.run_campaign({'cnn': get_workload('tiny_cnn')},\n"
@@ -123,6 +133,18 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         functional.weights_from_reference(functional.make_weights(g), {},
                                           executor.cim_mvm_params(arch))
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import lm
+    from repro_torch.serving import BatchServer
+    cfg = reduced(get_config("qwen1.5-4b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.params_from_reference({}, cfg)
+    params = lm.init_params(cfg, torch.Generator(), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchServer(cfg, params)
+    assert BatchServer(cfg, params, device="cpu").device.type == "cpu"
     assert resolve_device("cpu") == torch.device("cpu")
 
 
