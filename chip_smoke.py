@@ -97,9 +97,29 @@ Drives ``repro_torch`` only — it imports neither JAX nor ``repro``:
    reference's own, nonzero), bit-equal executor outputs and
    calibration passes; the forward's kernel launches timed.
 
-Launch counts are set to 0 just before each of phases 3, 5, 6, 7 and
-8 (d) and read just after; each must have launched ``cim_mvm_tiles``
-and ``cim_mvm``.  Prints one ``{"kernels": [...]}`` JSON line (``launches``
+9. **LM training** (``[train]`` lines), TF32 off.  (a) Reduced
+   qwen1.5-4b, gemma2-2b and mixtral-8x7b in float32 from one seed on
+   the card and on the CPU: the loss, every gradient leaf, and the
+   params and moments after one clipped AdamW update fed the CPU's
+   gradients, within 1e-5 of each leaf's largest magnitude; two
+   microbatches against one on the card within the same bound (not on
+   mixtral: an MoE layer's expert capacity scales with the tokens of a
+   call).  (b) qwen1.5-4b at full width in bf16 trains 10 steps on
+   ``TokenStream(vocab, 2, 4096, seed=0)`` through the ``Trainer`` that
+   ``launch/train.py`` builds (B = 2, S = 4096, ``mb=1``, remat, lr
+   1e-3, no checkpoint): each step's loss and seconds, the median step,
+   tokens/s against ``lm_train_bound_ms``, the optimizer's own
+   milliseconds, peak memory, set-up seconds and one more step under
+   ``torch.profiler``; every loss finite and the mean of the last three
+   below the first.  (c) Reduced qwen1.5-4b in bf16: 4 steps with
+   checkpoints every 2, then a new trainer on the same workdir resumes
+   at step 4 on the card to step 6; its losses at steps 5-6 equal an
+   uninterrupted run's within 1e-3 relative.
+
+Launch counts are set to 0 just before each of phases 3, 5, 6, 7,
+8 (d) and 9 and read just after; each of 3-8 must have launched
+``cim_mvm_tiles`` and ``cim_mvm``, and phase 9 neither (the training
+path has no TPU kernel).  Prints one ``{"kernels": [...]}`` JSON line (``launches``
 is phase 3's count, ``launches_by_path`` every phase's) and the
 ``nvidia-smi`` line before the last line, which is ``{"ok": true,
 "device": {...}}``.  Any failure raises and exits non-zero without that
@@ -148,6 +168,12 @@ LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW = 4, 256, 8, 32
 LM_PROMPT = (32, 128)         # prompt lengths, inclusive
 LM_CPU_ARCHS = ("qwen1.5-4b", "gemma2-2b")    # phase 8 (c), reduced
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
+#: phase 9: the reference's train_4k sequence length, its global batch of
+#: 256 cut to 2 for one card and the script's time
+TRAIN_SHAPE = (2, 4096)
+TRAIN_STEPS = 10
+TRAIN_LR = 1e-3               # the training CLI's default
+TRAIN_CPU_ARCHS = ("qwen1.5-4b", "gemma2-2b", "mixtral-8x7b")  # 9 (a)
 
 
 def gpu_line() -> str:
@@ -1127,8 +1153,8 @@ class _WatchLm:
 
 
 def _rel(got, want) -> float:
-    return float((got.float() - want.float()).abs().max()
-                 / want.float().abs().max().clamp_min(1e-9))
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-9))
 
 
 def _lm_consistency():
@@ -1385,6 +1411,275 @@ def phase_lm():
     return launches, block
 
 
+def lm_train_bound_ms(cfg, b: int, s: int):
+    """Least time of one training step at (b, s) with the unit remat'd:
+    the matmul operations of forward, backward and the recompute (8 per
+    weight and token: 2 forward, 2 recomputed, 4 backward; the tied
+    embedding's logits included, as ``lm_loss`` recomputes them too, and
+    causal attention's QK^T and AV) over the bf16 rate, plus the
+    optimizer's bytes over the memory rate (bf16 params read and
+    written, bf16 grads read, float32 mu and nu read and written: 22
+    bytes a parameter).  Returns (total, matmul part, optimizer part)
+    in ms."""
+    d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    per_token = (d * (h + 2 * k) * hd + h * hd * d
+                 + 3 * d * cfg.d_ff) * cfg.n_layers + d * cfg.vocab
+    attn = 2 * h * hd * s * (s + 1) // 2 * cfg.n_layers    # MACs, causal
+    t_ops = 8 * (per_token * b * s + attn * b) / BF16_FLOPS_PER_S
+    t_opt = 22 * cfg.param_count() / HBM_BYTES_PER_S
+    return (t_ops + t_opt) * 1e3, t_ops * 1e3, t_opt * 1e3
+
+
+def _train_card_vs_cpu():
+    """Phase 9 (a): reduced configs in float32 from the same parameters
+    on the card and on the CPU: loss, every gradient leaf, and params
+    and moments after one clipped AdamW update fed the same gradients;
+    then two microbatches against one on the card."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    worst = 0.0
+    for name in TRAIN_CPU_ARCHS:
+        cfg = dataclasses.replace(reduced(get_config(name)),
+                                  dtype=torch.float32)
+        cpu = lm.init_params(cfg, torch.Generator().manual_seed(4),
+                             device="cpu")
+        gpu = tree_map(lambda t: t.to(DEV), cpu)
+        batch = TokenStream(cfg.vocab, 2, 32, seed=5).next_batch()
+        lc, gc = steps.loss_and_grads(cpu, cfg, steps.to_device(batch, "cpu"))
+        lg, gg = steps.loss_and_grads(gpu, cfg, steps.to_device(batch, DEV))
+        e_loss = abs(float(lg) - float(lc)) / abs(float(lc))
+        e_grad = max(_rel(a.cpu(), b) for a, b in zip(tree_leaves(gg),
+                                                      tree_leaves(gc)))
+        e_mb = 0.0
+        if not cfg.n_experts:
+            # an MoE layer's expert capacity scales with the tokens of a
+            # call, so microbatches drop other tokens (the reference's too)
+            l2, g2 = steps.loss_and_grads(gpu, cfg,
+                                          steps.to_device(batch, DEV), 2)
+            e_mb = max([abs(float(l2) - float(lg)) / abs(float(lg))]
+                       + [_rel(a, b) for a, b in zip(tree_leaves(g2),
+                                                     tree_leaves(gg))])
+            del g2
+        same = tree_map(lambda t: t.to(DEV), gc)          # the CPU's grads
+        del gg
+        oc, nc = steps.apply_update(cpu, adamw.adamw_init(cpu), gc,
+                                    TRAIN_LR)
+        og, ng = steps.apply_update(gpu, adamw.adamw_init(gpu), same,
+                                    TRAIN_LR)
+        e_upd = max(_rel(a.cpu(), b) for a, b in zip(
+            tree_leaves((gpu, og)), tree_leaves((cpu, oc))))
+        n = len(tree_leaves(cpu))
+        print(f"[train] (a) {cfg.name} float32, B=2 S=32: loss "
+              f"{float(lc):.6f} on the CPU, card vs CPU rel {e_loss:.2e}; "
+              f"{n} gradient leaves max rel {e_grad:.2e}; grad norm "
+              f"{float(ng):.6f} vs {float(nc):.6f}; params and moments "
+              f"after one clipped AdamW update max rel {e_upd:.2e}; "
+              + (f"mb=2 vs mb=1 on the card max rel {e_mb:.2e}"
+                 if not cfg.n_experts else "no mb=2 check (MoE capacity)")
+              + " (limit 1e-5 of each leaf's largest magnitude)")
+        errs = (e_loss, e_grad, e_upd, e_mb)
+        assert max(errs) <= 1e-5, (name, errs)
+        worst = max(worst, *errs)
+    return worst
+
+
+class _WatchUpdate:
+    """CUDA-event milliseconds of each ``steps.apply_update`` call (clip
+    and AdamW) the trainer makes; restores the function on exit."""
+
+    def __init__(self):
+        self.events = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.launch import steps
+        self.saved = steps.apply_update
+
+        def run(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.saved(*args, **kw)
+            end.record()
+            self.events.append((start, end))
+            return out
+        steps.apply_update = run
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import steps
+        steps.apply_update = self.saved
+
+    def ms(self):
+        import torch
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def _records(workdir) -> list:
+    path = pathlib.Path(workdir) / "metrics.jsonl"
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def _train_cli(workdir, *args):
+    """The trainer and stream ``launch/train.py`` builds, logging every
+    step."""
+    from repro_torch.launch import train as train_cli
+    trainer, stream = train_cli.build(train_cli.parse_args(
+        ["--arch", LM_ARCH, "--device", DEV, "--workdir", str(workdir)]
+        + list(args)))
+    trainer.tcfg.log_every = 1
+    return trainer, stream
+
+
+def _train_full():
+    """Phase 9 (b): qwen1.5-4b at full width in bf16, trained through
+    the CLI's ``Trainer``; returns the numbers for the summary."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models.layers import tree_leaves
+    b, s = TRAIN_SHAPE
+    with tempfile.TemporaryDirectory() as wd:
+        torch.cuda.reset_peak_memory_stats()
+        trainer, stream = _train_cli(
+            wd, "--batch", str(b), "--seq-len", str(s), "--steps",
+            str(TRAIN_STEPS), "--save-every", str(TRAIN_STEPS + 1),
+            "--lr", str(TRAIN_LR), *(["--reduced"] if LM_REDUCED else []))
+        cfg = trainer.cfg
+        setup = []
+        restore = trainer.restore_or_init
+
+        def timed_restore(seed):
+            t0 = time.perf_counter()
+            out = restore(seed)
+            torch.cuda.synchronize()
+            setup.append(time.perf_counter() - t0)
+            return out
+        trainer.restore_or_init = timed_restore
+        with _WatchUpdate() as watch:
+            res = trainer.train(seed=0)
+        del trainer.restore_or_init            # no cycle keeps the state
+        opt_ms = watch.ms()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        recs = [r for r in _records(wd) if "ema" in r]
+    losses = [r["loss"] for r in recs]
+    step_s = [r["step_s"] for r in recs]
+    med = float(np.median(step_s[1:]))
+    pbytes = sum(t.numel() * t.element_size()
+                 for t in tree_leaves(trainer.params))
+    obytes = sum(t.numel() * t.element_size()
+                 for t in tree_leaves(trainer.opt_state))
+    bound, b_ops, b_opt = lm_train_bound_ms(cfg, b, s)
+    print(f"[train] (b) {cfg.name} bf16, {cfg.param_count() / 1e9:.3f} B "
+          f"parameters ({pbytes / 1e9:.2f} GB) + AdamW state "
+          f"({obytes / 1e9:.2f} GB); B={b} S={s}, mb=1, remat, lr "
+          f"{TRAIN_LR}; set-up (params drawn on the card, moments) "
+          f"{setup[0]:.3f} s; {res['steps']} steps in {res['wall_s']:.3f} s")
+    for r in recs:
+        print(f"[train] (b) step {r['step']}: loss {r['loss']:.6f}, grad "
+              f"norm {r['grad_norm']:.6f}, {r['step_s']:.4f} s")
+    print(f"[train] (b) median step (steps 2-{len(recs)}) {med:.4f} s, "
+          f"{b * s / med:.1f} tokens/s; bound {bound:.3f} ms ({b_ops:.3f} "
+          f"matmul + {b_opt:.3f} optimizer) = {100 * bound / 1e3 / med:.2f} "
+          f"% of the step; optimizer (clip + AdamW) {np.median(opt_ms):.3f} "
+          f"ms median on the card (min {min(opt_ms):.3f}, max "
+          f"{max(opt_ms):.3f}) against {b_opt:.3f} ms by bytes; peak "
+          f"{peak:.2f} GiB")
+    assert all(math.isfinite(x) for x in losses), losses
+    assert np.mean(losses[-3:]) < losses[0], losses
+    assert res["nan_steps"] == 0 and res["steps"] == TRAIN_STEPS, res
+
+    batch = steps.to_device(stream.next_batch(), DEV)
+    t0 = time.perf_counter()
+    prof = profile_call(
+        lambda: steps.train_step(trainer.params, trainer.opt_state, batch,
+                                 cfg, lr=TRAIN_LR, microbatches=1),
+        f"one B={b} S={s} training step")
+    prof_s = time.perf_counter() - t0
+    print(f"[train] (b) profiled step: {prof['device_ops']} device kernels "
+          f"and copies, device busy {prof['device_busy_s']:.3f} s = "
+          f"{100 * prof['unprofiled_busy_share']:.1f} % of an unprofiled "
+          f"step ({prof['unprofiled_wall_s']:.4f} s); the profile took "
+          f"{prof_s:.1f} s, of which reading the trace "
+          f"{prof_s - prof['wall_s'] - prof['unprofiled_wall_s']:.1f} s")
+    del trainer
+    return {"setup_s": setup[0], "losses": losses, "step_s": step_s,
+            "median_step_s": med, "tokens_per_s": b * s / med,
+            "bound_ms": bound, "optimizer_ms": opt_ms, "peak_gib": peak,
+            "profile": {k: prof[k] for k in ("device_ops", "device_busy_s",
+                                             "unprofiled_busy_share")}}
+
+
+def _train_resume():
+    """Phase 9 (c): reduced qwen1.5-4b in bf16, 4 steps then a new
+    trainer on the same workdir to 6, against 6 uninterrupted steps."""
+    import tempfile
+    import torch
+    args = ("--reduced", "--batch", "4", "--seq-len", "64", "--save-every",
+            "2")
+    with tempfile.TemporaryDirectory() as wd:
+        whole, _ = _train_cli(pathlib.Path(wd) / "a", *args, "--steps", "6")
+        whole.train()
+        first, _ = _train_cli(pathlib.Path(wd) / "b", *args, "--steps", "4")
+        first.train()
+        again, stream = _train_cli(pathlib.Path(wd) / "b", *args,
+                                   "--steps", "6")
+        again.train()
+        want = {r["step"]: r["loss"] for r in _records(pathlib.Path(wd) / "a")
+                if "ema" in r}
+        got = [r for r in _records(pathlib.Path(wd) / "b") if "ema" in r]
+    resumed = {r["step"]: r["loss"] for r in got[4:]}
+    errs = {k: abs(v - want[k]) / abs(want[k]) for k, v in resumed.items()}
+    on_card = again.params["embed"].device.type
+    print(f"[train] (c) {whole.cfg.name} bf16, B=4 S=64, checkpoints every 2 "
+          f"steps: 4 steps, then a new trainer resumed from step 4 on "
+          f"{on_card} with the stream at step {stream.state.step}; losses "
+          f"at steps 5-6 " + ", ".join(f"{resumed[k]:.6f}" for k in
+                                        sorted(resumed))
+          + " vs uninterrupted " + ", ".join(f"{want[k]:.6f}" for k in
+                                              sorted(resumed))
+          + f", max rel {max(errs.values()):.2e} (limit 1e-3)")
+    assert sorted(resumed) == [5, 6] and [r["step"] for r in got[:4]] == \
+        [1, 2, 3, 4], got
+    assert stream.state.step == 6 and on_card == torch.device(DEV).type
+    assert max(errs.values()) <= 1e-3, errs
+    return max(errs.values())
+
+
+def phase_train():
+    """Phase 9; returns the kernel launch counts of the training path
+    (none: the reference trains through plain XLA ops)."""
+    import torch
+    from repro_torch.kernels.cim_mvm import kernel
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[train] card: {gpu_line()}")
+    kernel.reset_launch_counts()
+    took = {}
+    for part, fn in (("a", _train_card_vs_cpu), ("b", _train_full),
+                     ("c", _train_resume)):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.empty_cache()
+        took[part] = time.perf_counter() - t0
+    print("[train] seconds: " + ", ".join(f"({k}) {v:.1f}"
+                                          for k, v in took.items()))
+    launches = dict(kernel.LAUNCHES)
+    print(f"[train] kernel launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    assert sum(launches.values()) == 0, launches
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1412,6 +1707,8 @@ def main() -> int:
     by_path = {"main": launches, "faults": fault_launches,
                "fleet": phase_fleet(graph), "dse": phase_dse(graph)}
     by_path["lm"], lm_forward = phase_lm()
+    torch.cuda.empty_cache()
+    by_path["train"] = phase_train()
     for name, row in rows.items():
         row["launches_by_path"] = {p: n[name] for p, n in by_path.items()}
     rows["cim_mvm_tiles"]["puma_faulted_forward"] = puma_forward

@@ -37,22 +37,54 @@ class TensorSpec:
     dtype: torch.dtype
 
 
+def _rebuild(tree, children):
+    """A tuple or list of ``tree``'s type (a NamedTuple too) holding
+    ``children``."""
+    if hasattr(tree, "_fields"):
+        return type(tree)(*children)
+    return type(tree)(children)
+
+
 def tree_map(fn: Callable, tree):
-    """``fn`` over the leaves of nested dicts, tuples and lists."""
+    """``fn`` over the leaves of nested dicts, tuples (NamedTuples
+    included) and lists."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v) for v in tree)
+        return _rebuild(tree, [tree_map(fn, v) for v in tree])
     return fn(tree)
 
 
 def tree_leaves(tree) -> list:
-    """The leaves of nested dicts (in sorted key order), tuples and lists."""
+    """The leaves of nested dicts (in sorted key order), tuples and lists:
+    ``jax.tree.leaves``'s order."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, (tuple, list)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_unflatten(like, leaves) -> Any:
+    """``leaves``, in ``tree_leaves`` order, placed into the structure of
+    ``like``; raises if their number differs from ``like``'s."""
+    it = iter(leaves)
+
+    def walk(t):
+        if isinstance(t, dict):
+            done = {k: walk(t[k]) for k in sorted(t)}
+            return {k: done[k] for k in t}
+        if isinstance(t, (tuple, list)):
+            return _rebuild(t, [walk(v) for v in t])
+        try:
+            return next(it)
+        except StopIteration:
+            raise ValueError("fewer leaves than the tree has") from None
+    out = walk(like)
+    end = object()
+    if next(it, end) is not end:
+        raise ValueError("more leaves than the tree has")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,8 @@ the reference's ``lax.scan`` over that axis is a Python loop over the
 repeat index here.  Weights take ``cfg.dtype``; norms, SSM decay and
 skip terms and the MoE router stay float32, as in the reference.
 Entry points: ``init_params`` / ``params_from_reference``, ``forward``
-/ ``logits_fn`` / ``lm_loss`` (forward only), ``prefill`` and
+/ ``logits_fn`` / ``lm_loss`` (differentiable, with the reference's
+activation checkpointing under ``remat``), ``prefill`` and
 ``decode_step`` (serving).  The decode cache that ``prefill`` returns is
 allocated once at ``cache_len`` and ``decode_step`` updates it in place.
 """
@@ -28,6 +29,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LayerSpec, ModelConfig
 from ..kernels.backend import resolve_device
@@ -35,7 +37,7 @@ from . import ssm as ssm_mod
 from .layers import (AttnSpec, TensorSpec, apply_mrope, apply_rope,
                      attention, cache_update, decode_attention, dense_mlp,
                      gated_mlp, init_from_specs, moe_mlp, rms_norm, softcap,
-                     tree_map)
+                     tree_leaves, tree_map, tree_unflatten)
 from .perfopts import require_default
 
 Params = Dict[str, Any]
@@ -324,6 +326,15 @@ def _repeat(tree: Params, j: int) -> Params:
     return tree_map(lambda t: t[j], tree)
 
 
+def _unstack(tree: Params, n: int) -> list:
+    """The ``n`` repeats of a stacked tree, from one ``unbind`` per leaf.
+    Its backward stacks the repeats' gradients in one copy, where a view
+    per repeat (``_repeat``) would add a zero-padded full-size gradient
+    for every repeat."""
+    parts = [t.unbind(0) for t in tree_leaves(tree)]
+    return [tree_unflatten(tree, [u[j] for u in parts]) for j in range(n)]
+
+
 def _cross_kv(p: Params, cfg: ModelConfig, enc_out):
     b, se, _ = enc_out.shape
     ck = (enc_out @ p["cross"]["wk"]).reshape(b, se, cfg.n_kv_heads,
@@ -384,13 +395,21 @@ def _positions(batch, s: int, device) -> torch.Tensor:
     return positions
 
 
+def _checkpointed(remat: bool, fn, *args):
+    """``fn(*args)``, under activation checkpointing when ``remat`` is on
+    and autograd records: its activations are recomputed in the
+    backward instead of kept (the reference's ``jax.checkpoint``)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             remat: bool = False) -> torch.Tensor:
     """Token (+stub-modality) inputs -> final hidden states (B,S,D).
 
-    ``remat`` is accepted for the reference's signature: with no
-    autograd graph kept it changes nothing, but a non-default
-    ``remat_policy`` still raises."""
+    ``remat`` checkpoints each repeat of the layer unit (and each encoder
+    layer): the reference's ``remat_policy="full"``; "dots" raises."""
     if remat:
         require_default("remat_policy")
     x = _embed(params, cfg, batch)
@@ -404,10 +423,14 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     for p, spec in zip(params.get("pre", ()), cfg.pre):
         x, _ = layer_forward(p, cfg, spec, x, positions, positions3, None)
 
-    for j in range(cfg.n_unit_repeats):
+    def unit(x, unit_p):
         for i, spec in enumerate(cfg.unit):
-            x, _ = layer_forward(_repeat(params["unit"][f"u{i}"], j), cfg,
-                                 spec, x, positions, positions3, enc_out)
+            x, _ = layer_forward(unit_p[f"u{i}"], cfg, spec, x, positions,
+                                 positions3, enc_out)
+        return x
+
+    for unit_p in _unstack(params["unit"], cfg.n_unit_repeats):
+        x = _checkpointed(remat, unit, x, unit_p)
     return rms_norm(x, params["final_norm"])
 
 
@@ -418,12 +441,15 @@ def encode(params: Params, cfg: ModelConfig, enc_embeds: torch.Tensor,
     x = enc_embeds.to(cfg.dtype)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     spec = LayerSpec(mixer="attn", mlp="dense")
-    for j in range(cfg.n_enc_layers):
-        p = _repeat(params["enc_unit"], j)
+
+    def layer(x, p):
         h = rms_norm(x, p["norm"])
         y, _ = attn_mixer(p, cfg, spec, h, positions, causal=False)
         x = x + y
-        x = x + mlp_block(p, cfg, spec, x)
+        return x + mlp_block(p, cfg, spec, x)
+
+    for p in _unstack(params["enc_unit"], cfg.n_enc_layers):
+        x = _checkpointed(remat, layer, x, p)
     return rms_norm(x, params["enc_norm"])
 
 
@@ -440,23 +466,32 @@ def logits_fn(params: Params, cfg: ModelConfig,
 
 def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             chunk: int = 512, remat: bool = True) -> torch.Tensor:
-    """Mean next-token cross-entropy, chunked over the sequence (forward
-    only: no gradient path is ported yet)."""
+    """Mean next-token cross-entropy, chunked over the sequence.
+
+    S must be a multiple of ``min(chunk, S)`` (the reference's reshape
+    refuses a ragged last chunk too).  Each chunk's (B, chunk, vocab)
+    float32 logits are recomputed in the backward instead of being kept
+    for every chunk, as the reference checkpoints its chunk step."""
     x = forward(params, cfg, batch, remat=remat)
     labels = batch["labels"]
     b, s, d = x.shape
     c = min(chunk, s)
-    nc = s // c
-    tot = torch.zeros((), dtype=F32, device=x.device)
-    cnt = 0
-    for i in range(nc):
-        logits = logits_fn(params, cfg, x[:, i * c:(i + 1) * c])
+    if s % c:
+        raise ValueError(f"lm_loss: S = {s} is not a multiple of "
+                         f"chunk = {c} (min(chunk, S))")
+
+    def nll(xc, lc):
+        logits = logits_fn(params, cfg, xc)
         lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.take_along_dim(
-            logits, labels[:, i * c:(i + 1) * c, None].long(), dim=-1)[..., 0]
-        tot = tot + torch.sum(lse - ll)
-        cnt += lse.numel()
-    return tot / cnt
+        ll = torch.take_along_dim(logits, lc[..., None].long(),
+                                  dim=-1)[..., 0]
+        return torch.sum(lse - ll)
+
+    tot = torch.zeros((), dtype=F32, device=x.device)
+    for i in range(s // c):
+        tot = tot + _checkpointed(True, nll, x[:, i * c:(i + 1) * c],
+                                  labels[:, i * c:(i + 1) * c])
+    return tot / (b * s)
 
 
 # ---------------------------------------------------------------------------

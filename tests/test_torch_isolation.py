@@ -3,7 +3,8 @@
 An AST scan finds no import of ``jax`` or ``repro`` in the port's
 package or in ``chip_smoke.py``; the package imports in a process where
 both are blocked; entry points asked for the default device (the LM
-model's and server's too) raise when there is no CUDA card; and the
+model's, server's, trainer's and training CLI's too) raise when there
+is no CUDA card; and the
 port's compile store is its own and refuses the JAX package's entries.
 """
 import ast
@@ -42,7 +43,7 @@ def test_no_jax_or_repro_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-def test_package_imports_with_jax_and_repro_blocked():
+def test_package_imports_with_jax_and_repro_blocked(tmp_path):
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -84,6 +85,15 @@ def test_package_imports_with_jax_and_repro_blocked():
         "                     get_arch('toy'))\n"
         "exe = executor.lower(res.plan, res.program, device='cpu',\n"
         "                     faults=fm)\n"
+        "import repro_torch.train, repro_torch.launch.train\n"
+        "from repro_torch import checkpoint, data, launch, optim, train\n"
+        "from repro_torch.launch import steps\n"
+        "cli = repro_torch.launch.train\n"
+        f"trainer, _ = cli.build(cli.parse_args(['--arch', 'gemma2-2b',\n"
+        f"    '--reduced', '--device', 'cpu', '--steps', '2', '--batch', '2',\n"
+        f"    '--seq-len', '8', '--save-every', '1',\n"
+        f"    '--workdir', {str(tmp_path)!r}]))\n"
+        "assert trainer.train()['steps'] == 2\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'repro')\n"
         "             and sys.modules[m] is not None))\n"
@@ -95,7 +105,7 @@ def test_package_imports_with_jax_and_repro_blocked():
     assert out.stdout.strip() == "[]"
 
 
-def test_default_device_raises_without_cuda(monkeypatch):
+def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
     from repro_torch.cimsim import executor, faults, functional
     from repro_torch.core import compiler
     from repro_torch.core.abstraction import get_arch
@@ -145,6 +155,15 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BatchServer(cfg, params)
     assert BatchServer(cfg, params, device="cpu").device.type == "cpu"
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import Trainer, TrainerConfig
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, ShapeSpec("t", "train", 8, 2),
+                TrainerConfig(workdir=str(tmp_path)), iter(()))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--arch", "gemma2-2b", "--reduced", "--workdir",
+                        str(tmp_path)])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
