@@ -110,16 +110,40 @@ Drives ``repro_torch`` only — it imports neither JAX nor ``repro``:
    1e-3, no checkpoint): each step's loss and seconds, the median step,
    tokens/s against ``lm_train_bound_ms``, the optimizer's own
    milliseconds, peak memory, set-up seconds and one more step under
-   ``torch.profiler``; every loss finite and the mean of the last three
+   ``torch.profiler`` on a depth-cut copy (its first 4 of 40 layers,
+   fresh weights, the same batch: a full-depth step's trace took
+   minutes to read); every loss finite and the mean of the last three
    below the first.  (c) Reduced qwen1.5-4b in bf16: 4 steps with
    checkpoints every 2, then a new trainer on the same workdir resumes
    at step 4 on the card to step 6; its losses at steps 5-6 equal an
    uninterrupted run's within 1e-3 relative.
 
+10. **Levers and launch cells** (``[launch]`` lines), TF32 off,
+   qwen1.5-4b at full width in bf16.  (a) Phase 8's 8 requests served
+   again under ``use_perf_opts(OPTIMIZED)``: decode ms a step against
+   the bound and tokens/s, the profiled decode step's ``aten::copy_``
+   calls, device ops and busy share beside phase 8's default run; the
+   profiled step's logits against phase 8's within 5e-2 of the largest
+   (the reference test's limit) and the share of greedy tokens served
+   alike (printed, not asserted: bf16 rounding differs).  (b) A B = 2,
+   S = 4096 prefill with ``triangular_attention`` (36 of 64 block pairs
+   a layer) against the dense loop: last logits within 2e-2 of the
+   largest, both times.  (c) ``remat_policy="dots"``: reduced
+   qwen1.5-4b float32 gradients against full remat on the card within
+   1e-5 of each leaf's largest, then 3 full-width training steps at
+   B = 2, S = 4096 with step seconds and peak memory beside phase 9's.
+   (d) ``launch.steps.build_cell`` of decode_32k at its published
+   S = 32768 with B cut from 128 to 1 (params 7.12 GB, cache 13.4 GB):
+   8 steps default and 8 under ``OPTIMIZED`` from the same arguments,
+   against the bound by bytes.  (e) ``launch.dryrun`` of qwen1.5-4b on
+   "meta" over its three shapes on the 16x16 mesh plan, printed per
+   cell; then (d)'s cell counted on one device, its ``memory_s`` beside
+   the measured step.
+
 Launch counts are set to 0 just before each of phases 3, 5, 6, 7,
-8 (d) and 9 and read just after; each of 3-8 must have launched
-``cim_mvm_tiles`` and ``cim_mvm``, and phase 9 neither (the training
-path has no TPU kernel).  Prints one ``{"kernels": [...]}`` JSON line (``launches``
+8 (d), 9 and 10 and read just after; each of 3-8 must have launched
+``cim_mvm_tiles`` and ``cim_mvm``, and phases 9 and 10 neither (the LM
+substrate has no TPU kernel).  Prints one ``{"kernels": [...]}`` JSON line (``launches``
 is phase 3's count, ``launches_by_path`` every phase's) and the
 ``nvidia-smi`` line before the last line, which is ``{"ok": true,
 "device": {...}}``.  Any failure raises and exits non-zero without that
@@ -137,10 +161,12 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.analysis.roofline import (  # noqa: E402  (H100 SXM rates)
+    HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS as BF16_FLOPS_PER_S)
+
 DEV = "cuda"
 HW = 224                      # ResNet-18's published input width
 BATCH = 4
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor-core rate
 FAULT_ARCH = "puma"           # the saturating crossbar-mode preset
 FAULT_HW = 32                 # input width of the interpreter check
@@ -167,13 +193,22 @@ LM_CONSISTENCY = (2, 64)      # (B, S) of phase 8 (a)
 LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW = 4, 256, 8, 32
 LM_PROMPT = (32, 128)         # prompt lengths, inclusive
 LM_CPU_ARCHS = ("qwen1.5-4b", "gemma2-2b")    # phase 8 (c), reduced
-BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
 #: phase 9: the reference's train_4k sequence length, its global batch of
 #: 256 cut to 2 for one card and the script's time
 TRAIN_SHAPE = (2, 4096)
 TRAIN_STEPS = 10
 TRAIN_LR = 1e-3               # the training CLI's default
 TRAIN_CPU_ARCHS = ("qwen1.5-4b", "gemma2-2b", "mixtral-8x7b")  # 9 (a)
+#: the layers of the depth-cut copy whose training step phase 9 profiles
+#: (reading a full-depth step's trace took minutes)
+TRAIN_PROFILE_LAYERS = 4
+#: phase 10: (b) triangular prefill at (B, S); (c) "dots" training steps
+#: at TRAIN_SHAPE; (d) the decode_32k cell at its published S with B cut
+#: from 128 to LAUNCH_DECODE_B, LAUNCH_DECODE_STEPS steps a variant
+LAUNCH_PREFILL = (2, 4096)
+LAUNCH_DOTS_STEPS = 3
+LAUNCH_DECODE_B, LAUNCH_DECODE_STEPS = 1, 8
+LAUNCH_DRYRUN_ARCH = "qwen1.5-4b"
 
 
 def gpu_line() -> str:
@@ -512,29 +547,39 @@ def profile_call(fn, label: str):
     stats = prof.key_averages()
     dev = sorted((e for e in stats if e.device_type == DeviceType.CUDA),
                  key=_device_us, reverse=True)
-    ops = sorted((e for e in stats if e.device_type == DeviceType.CPU
-                  and e.key.startswith("aten::") and _device_us(e, True)),
+    aten = [e for e in stats if e.device_type == DeviceType.CPU
+            and e.key.startswith("aten::")]
+    ops = sorted((e for e in aten if _device_us(e, True)),
                  key=lambda e: _device_us(e, True), reverse=True)
+    host = sorted(aten, key=lambda e: e.self_cpu_time_total, reverse=True)
     assert dev, "the profiler recorded no device activity"
     busy_s = sum(_device_us(e) for e in dev) / 1e6
     out = {"wall_s": wall, "unprofiled_wall_s": bare,
            "device_ops": sum(e.count for e in dev),
+           "copy_calls": sum(e.count for e in stats
+                             if e.key == "aten::copy_"),
            "device_busy_s": busy_s, "busy_share": busy_s / wall,
            "unprofiled_busy_share": busy_s / bare,
            "kernels": [(e.key[:70], e.count, _device_us(e) / 1e3)
                        for e in dev[:8]],
            "operators": [(e.key, e.count, _device_us(e, True) / 1e3)
-                         for e in ops[:8]]}
+                         for e in ops[:8]],
+           "host_operators": [(e.key, e.count, e.self_cpu_time_total / 1e3)
+                              for e in host[:8]]}
     print(f"[profile] {label}: wall {wall:.4f} s "
           f"profiled, {bare:.4f} s unprofiled; device busy "
           f"{busy_s * 1e3:.3f} ms ({100 * out['busy_share']:.1f} % of the "
           f"profiled wall, {100 * out['unprofiled_busy_share']:.1f} % of the "
-          f"unprofiled); {out['device_ops']} device kernels and copies")
+          f"unprofiled); {out['device_ops']} device kernels and copies; "
+          f"{out['copy_calls']} aten::copy_ calls")
     print("[profile] top device kernels (launches, ms): " + "; ".join(
         f"{k} ({n}, {ms:.3f})" for k, n, ms in out["kernels"]))
     print("[profile] top operators by device time incl. children "
           "(calls, ms): " + "; ".join(
               f"{k} ({n}, {ms:.3f})" for k, n, ms in out["operators"]))
+    print("[profile] top operators by own host time, profiled (calls, ms): "
+          + "; ".join(f"{k} ({n}, {ms:.3f})"
+                      for k, n, ms in out["host_operators"]))
     return out
 
 
@@ -1191,13 +1236,16 @@ def _lm_consistency():
     assert torch.isfinite(ref).all()
 
 
-def _lm_serving():
-    """Phase 8 (b): ``BatchServer`` in bf16 at full width; returns the
-    numbers for the summary."""
+def _lm_serving(opts=None, tag: str = "[lm] (b)"):
+    """Phase 8 (b), and 10 (a) under ``opts``: ``BatchServer`` in bf16 at
+    full width; returns the numbers for the summary, the served tokens
+    and the profiled decode step's logits (on the CPU)."""
     import numpy as np
     import torch
     from repro_torch.models import lm
+    from repro_torch.models.perfopts import PerfOpts, use_perf_opts
     from repro_torch.serving import BatchServer, Request
+    opts = opts or PerfOpts()
     cfg = _lm_base()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1214,7 +1262,7 @@ def _lm_serving():
                                                LM_PROMPT[1] + 1))
             ).astype(np.int32), max_new_tokens=LM_NEW)
             for i in range(LM_REQUESTS)]
-    with _WatchLm() as watch:
+    with _WatchLm() as watch, use_perf_opts(opts):
         t0 = time.perf_counter()
         server.serve(reqs)
         serve_s = time.perf_counter() - t0
@@ -1231,16 +1279,16 @@ def _lm_serving():
                                 params["embed"].element_size())
     tokens = sum(len(r.output) for r in reqs)
     dec_ms = 1e3 * float(np.mean(dec))
-    print(f"[lm] (b) {cfg.name} bf16, {pbytes / 1e9:.2f} GB of parameters; "
+    print(f"{tag} {cfg.name} bf16, {pbytes / 1e9:.2f} GB of parameters; "
           f"BatchServer({LM_SLOTS} slots, max_len {LM_MAX_LEN}) set-up "
           f"{setup_s:.3f} s; {len(reqs)} requests, prompts "
           f"{min(len(r.prompt) for r in reqs)}-"
           f"{max(len(r.prompt) for r in reqs)} tokens, {LM_NEW} new each, "
           f"all served, every logit finite")
-    print("[lm] (b) prefill s per batch: " + ", ".join(
+    print(f"{tag} prefill s per batch: " + ", ".join(
         f"{t:.4f} (S={n}, bound {bms:.3f} ms by {by})"
         for t, n, (bms, by) in zip(pre, plens, bounds)))
-    print(f"[lm] (b) decode: {len(dec)} steps, {dec_ms:.3f} ms per step "
+    print(f"{tag} decode: {len(dec)} steps, {dec_ms:.3f} ms per step "
           f"(median {1e3 * float(np.median(dec)):.3f}, min "
           f"{1e3 * min(dec):.3f}, max {1e3 * max(dec):.3f}) against a "
           f"{dbound:.3f} ms bound by bytes at mean length {mean_len:.1f}; "
@@ -1251,22 +1299,29 @@ def _lm_serving():
     n = LM_PROMPT[1]
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (LM_SLOTS, n + 1))
                             ).to(DEV)
-    with torch.no_grad():
+    last = {}
+
+    def step():        # rewrites slot n with the same entries each time
+        last["logits"] = lm.decode_step(params, cfg, cache,
+                                        {"tokens": toks[:, n:]}, n)[0]
+    with torch.no_grad(), use_perf_opts(opts):
         _, cache = lm.prefill(params, cfg, {"tokens": toks[:, :n]},
                               cache_len=LM_MAX_LEN)
-        prof = profile_call(
-            lambda: lm.decode_step(params, cfg, cache,
-                                   {"tokens": toks[:, n:]}, n),
-            f"one batch-{LM_SLOTS} decode step at length {n + 1}")
+        prof = profile_call(step, f"one batch-{LM_SLOTS} decode step at "
+                            f"length {n + 1}")
     pbound = lm_decode_bound_ms(cfg, pbytes, LM_SLOTS, n + 1,
                                 params["embed"].element_size())
-    print(f"[lm] (b) profiled decode step: {prof['device_ops']} device "
-          f"kernels and copies, device busy "
-          f"{100 * prof['unprofiled_busy_share']:.1f} % of an unprofiled "
-          f"step; bound {pbound:.3f} ms by bytes")
+    print(f"{tag} profiled decode step: {prof['device_ops']} device "
+          f"kernels and copies ({prof['copy_calls']} aten::copy_), device "
+          f"busy {100 * prof['unprofiled_busy_share']:.1f} % of an "
+          f"unprofiled step; bound {pbound:.3f} ms by bytes")
     return {"setup_s": setup_s, "prefill_s": pre, "decode_ms": dec_ms,
             "tokens_per_s": tokens / serve_s, "peak_gib": peak,
-            "decode_bound_ms": dbound}
+            "decode_bound_ms": dbound, "copies": prof["copy_calls"],
+            "device_ops": prof["device_ops"],
+            "busy_share": prof["unprofiled_busy_share"],
+            "outputs": [list(r.output) for r in reqs],
+            "last_logits": last["logits"].float().cpu()}
 
 
 def _lm_card_vs_cpu():
@@ -1394,7 +1449,7 @@ def _lm_block():
 
 def phase_lm():
     """Phase 8; returns (launch counts of (d), the lm block forward's
-    kernel times)."""
+    kernel times, the serving numbers of (b))."""
     import torch
     t_phase = time.perf_counter()
     # float32 checks mean float32: no TF32 in matmuls or convolutions
@@ -1403,12 +1458,12 @@ def phase_lm():
     print(f"[lm] card: {gpu_line()}")
     _lm_consistency()
     torch.cuda.empty_cache()
-    _lm_serving()
+    serving = _lm_serving()
     torch.cuda.empty_cache()
     _lm_card_vs_cpu()
     launches, block = _lm_block()
     print(f"[lm] phase {time.perf_counter() - t_phase:.1f} s")
-    return launches, block
+    return launches, block, serving
 
 
 def lm_train_bound_ms(cfg, b: int, s: int):
@@ -1598,24 +1653,46 @@ def _train_full():
     assert res["nan_steps"] == 0 and res["steps"] == TRAIN_STEPS, res
 
     batch = steps.to_device(stream.next_batch(), DEV)
-    t0 = time.perf_counter()
-    prof = profile_call(
-        lambda: steps.train_step(trainer.params, trainer.opt_state, batch,
-                                 cfg, lr=TRAIN_LR, microbatches=1),
-        f"one B={b} S={s} training step")
-    prof_s = time.perf_counter() - t0
-    print(f"[train] (b) profiled step: {prof['device_ops']} device kernels "
-          f"and copies, device busy {prof['device_busy_s']:.3f} s = "
-          f"{100 * prof['unprofiled_busy_share']:.1f} % of an unprofiled "
-          f"step ({prof['unprofiled_wall_s']:.4f} s); the profile took "
-          f"{prof_s:.1f} s, of which reading the trace "
-          f"{prof_s - prof['wall_s'] - prof['unprofiled_wall_s']:.1f} s")
     del trainer
+    torch.cuda.empty_cache()
+    prof = _profile_cut_step(cfg, batch)
     return {"setup_s": setup[0], "losses": losses, "step_s": step_s,
             "median_step_s": med, "tokens_per_s": b * s / med,
             "bound_ms": bound, "optimizer_ms": opt_ms, "peak_gib": peak,
             "profile": {k: prof[k] for k in ("device_ops", "device_busy_s",
                                              "unprofiled_busy_share")}}
+
+
+def _profile_cut_step(cfg, batch, tag: str = "[train] (b)"):
+    """One training step of a depth-cut copy of ``cfg`` (its first
+    TRAIN_PROFILE_LAYERS layers, fresh weights from a seed) under the
+    profiler, at the same batch."""
+    import dataclasses
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_PROFILE_LAYERS)
+    params = lm.init_params(cut, torch.Generator(device=DEV).manual_seed(0),
+                            device=DEV)
+    opt = adamw.adamw_init(params)
+    b, s = batch["tokens"].shape
+    t0 = time.perf_counter()
+    prof = profile_call(
+        lambda: steps.train_step(params, opt, batch, cut, lr=TRAIN_LR,
+                                 microbatches=1),
+        f"one B={b} S={s} training step, {TRAIN_PROFILE_LAYERS} of "
+        f"{cfg.n_layers} layers")
+    prof_s = time.perf_counter() - t0
+    print(f"{tag} profiled step of a depth-cut copy "
+          f"({TRAIN_PROFILE_LAYERS} of {cfg.n_layers} layers; cut so that "
+          f"reading the trace takes seconds): {prof['device_ops']} device "
+          f"kernels and copies, device busy {prof['device_busy_s']:.3f} s = "
+          f"{100 * prof['unprofiled_busy_share']:.1f} % of an unprofiled "
+          f"step ({prof['unprofiled_wall_s']:.4f} s); the profile took "
+          f"{prof_s:.1f} s, of which reading the trace "
+          f"{prof_s - prof['wall_s'] - prof['unprofiled_wall_s']:.1f} s")
+    return prof
 
 
 def _train_resume():
@@ -1656,7 +1733,8 @@ def _train_resume():
 
 def phase_train():
     """Phase 9; returns the kernel launch counts of the training path
-    (none: the reference trains through plain XLA ops)."""
+    (none: the reference trains through plain XLA ops) and (b)'s
+    numbers."""
     import torch
     from repro_torch.kernels.cim_mvm import kernel
     t_phase = time.perf_counter()
@@ -1664,17 +1742,259 @@ def phase_train():
     torch.backends.cudnn.allow_tf32 = False
     print(f"[train] card: {gpu_line()}")
     kernel.reset_launch_counts()
-    took = {}
+    took, res = {}, {}
     for part, fn in (("a", _train_card_vs_cpu), ("b", _train_full),
                      ("c", _train_resume)):
         t0 = time.perf_counter()
-        fn()
+        res[part] = fn()
         torch.cuda.empty_cache()
         took[part] = time.perf_counter() - t0
     print("[train] seconds: " + ", ".join(f"({k}) {v:.1f}"
                                           for k, v in took.items()))
     launches = dict(kernel.LAUNCHES)
     print(f"[train] kernel launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    assert sum(launches.values()) == 0, launches
+    return launches, res["b"]
+
+
+def _launch_serving(default):
+    """Phase 10 (a): phase 8's serving run again under ``OPTIMIZED``,
+    beside phase 8's numbers (``default``)."""
+    from repro_torch.models.perfopts import OPTIMIZED
+    opt = _lm_serving(OPTIMIZED, tag="[launch] (a) OPTIMIZED:")
+    err = _rel(opt["last_logits"], default["last_logits"])
+    pairs = [(a, b) for x, y in zip(opt["outputs"], default["outputs"])
+             for a, b in zip(x, y)]
+    agree = sum(a == b for a, b in pairs) / len(pairs)
+    print(f"[launch] (a) decode ms per step {opt['decode_ms']:.3f} OPTIMIZED "
+          f"vs {default['decode_ms']:.3f} default (bound "
+          f"{opt['decode_bound_ms']:.3f} ms); tokens/s "
+          f"{opt['tokens_per_s']:.1f} vs {default['tokens_per_s']:.1f}; "
+          f"profiled step aten::copy_ {opt['copies']} vs "
+          f"{default['copies']}, device ops {opt['device_ops']} vs "
+          f"{default['device_ops']}, device busy "
+          f"{100 * opt['busy_share']:.1f} % vs "
+          f"{100 * default['busy_share']:.1f} % of an unprofiled step; peak "
+          f"{opt['peak_gib']:.2f} vs {default['peak_gib']:.2f} GiB")
+    print(f"[launch] (a) last decode step's logits, lever on vs off: max "
+          f"|delta| / max |logit| {err:.3e} (limit 5e-2); greedy tokens "
+          f"served equal in {100 * agree:.1f} % of {len(pairs)} (bf16 "
+          "rounding differs; not asserted)")
+    assert err <= 5e-2, err
+    return opt
+
+
+def _launch_prefill():
+    """Phase 10 (b): a B x S prefill with the triangular lever against
+    the dense block loop, bf16, full width."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.perfopts import PerfOpts, use_perf_opts
+    from repro_torch.models.layers import _visible_pairs, AttnSpec
+    cfg = _lm_base()
+    b, s = LAUNCH_PREFILL
+    params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(1),
+                            device=DEV)
+    toks = torch.randint(0, cfg.vocab, (b, s), device=DEV,
+                         generator=torch.Generator(device=DEV).manual_seed(6))
+    out, secs = {}, {"dense": [], "triangular": []}
+    with torch.no_grad():
+        for name in ("dense", "triangular") * 2:     # the first pair warms
+            with use_perf_opts(PerfOpts(triangular_attention=name !=
+                                        "dense")):
+                t0 = time.perf_counter()
+                out[name] = lm.prefill(params, cfg, {"tokens": toks})[0]
+                torch.cuda.synchronize()
+                secs[name].append(time.perf_counter() - t0)
+    nb = -(-s // AttnSpec().q_block)
+    pairs = len(_visible_pairs(nb, nb, AttnSpec().q_block,
+                               AttnSpec().kv_block, AttnSpec()))
+    err = _rel(out["triangular"], out["dense"])
+    bms, by = lm_prefill_bound_ms(cfg, _tree_bytes(params), b, s)
+    print(f"[launch] (b) {cfg.name} bf16 prefill B={b} S={s}: dense "
+          f"{secs['dense'][1]:.4f} s ({nb * nb} block pairs a layer), "
+          f"triangular {secs['triangular'][1]:.4f} s ({pairs} pairs; first "
+          f"calls {secs['dense'][0]:.4f} / {secs['triangular'][0]:.4f} s); "
+          f"bound {bms:.3f} ms by {by}; last logits triangular vs dense "
+          f"rel {err:.3e} (limit 2e-2), bit-equal: "
+          f"{bool(torch.equal(out['triangular'], out['dense']))}")
+    assert err <= 2e-2, err
+    return secs
+
+
+def _launch_dots(full_remat):
+    """Phase 10 (c): ``remat_policy="dots"`` — reduced gradients against
+    full remat on the card, then full-width bf16 training steps beside
+    phase 9's full-remat numbers (``full_remat``)."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.perfopts import PerfOpts, use_perf_opts
+    dots = PerfOpts(remat_policy="dots")
+    cfg = dataclasses.replace(reduced(get_config(LM_ARCH)),
+                              dtype=torch.float32)
+    params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(4),
+                            device=DEV)
+    batch = steps.to_device(TokenStream(cfg.vocab, 2, 32, seed=5)
+                            .next_batch(), DEV)
+    lf, gf = steps.loss_and_grads(params, cfg, batch)
+    with use_perf_opts(dots):
+        ld, gd = steps.loss_and_grads(params, cfg, batch)
+    e_grad = max(_rel(a, b) for a, b in zip(tree_leaves(gd),
+                                            tree_leaves(gf)))
+    e_loss = abs(float(ld) - float(lf)) / abs(float(lf))
+    print(f"[launch] (c) {cfg.name} float32: \"dots\" vs full remat on the "
+          f"card, loss rel {e_loss:.2e}, gradients max rel {e_grad:.2e} "
+          "(limit 1e-5 of each leaf's largest)")
+    assert max(e_loss, e_grad) <= 1e-5, (e_loss, e_grad)
+    del params, gf, gd
+    b, s = TRAIN_SHAPE
+    with tempfile.TemporaryDirectory() as wd, use_perf_opts(dots):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer, _ = _train_cli(
+            wd, "--batch", str(b), "--seq-len", str(s), "--steps",
+            str(LAUNCH_DOTS_STEPS), "--save-every",
+            str(LAUNCH_DOTS_STEPS + 1), "--lr", str(TRAIN_LR),
+            *(["--reduced"] if LM_REDUCED else []))
+        trainer.train(seed=0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        recs = [r for r in _records(wd) if "ema" in r]
+        del trainer
+    step_s = [r["step_s"] for r in recs]
+    med = float(np.median(step_s[1:]))
+    # the same depth-cut step phase 9 profiles, under "dots"
+    stream = TokenStream(_lm_base().vocab, b, s, seed=0)
+    with use_perf_opts(dots):
+        prof = _profile_cut_step(_lm_base(), steps.to_device(
+            stream.next_batch(), DEV), tag="[launch] (c) \"dots\":")
+    print(f"[launch] (c) {_lm_base().name} bf16 B={b} S={s}, remat \"dots\", "
+          f"{len(recs)} steps: " + ", ".join(f"{x:.4f}" for x in step_s)
+          + f" s (median of steps 2-{len(recs)} {med:.4f} s, "
+          f"{b * s / med:.1f} tokens/s), losses "
+          + ", ".join(f"{r['loss']:.4f}" for r in recs)
+          + f"; peak {peak:.2f} GiB; phase 9 full remat: median "
+          f"{full_remat['median_step_s']:.4f} s, peak "
+          f"{full_remat['peak_gib']:.2f} GiB")
+    assert all(math.isfinite(r["loss"]) for r in recs), recs
+    return {"median_step_s": med, "peak_gib": peak, "profile": prof}
+
+
+def _launch_decode_cell():
+    """Phase 10 (d): the decode_32k cell at its published S with B cut,
+    default and ``OPTIMIZED``, from one set of arguments on the card."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import steps
+    from repro_torch.models.perfopts import OPTIMIZED
+    cfg = _lm_base()
+    pub = SHAPES["decode_32k"]
+    shape = dataclasses.replace(pub, global_batch=LAUNCH_DECODE_B)
+    cells = {"default": steps.build_cell(cfg, shape),
+             "OPTIMIZED": steps.build_cell(cfg, shape, perf=OPTIMIZED)}
+    params, cache, batch, last = cells["default"].materialize(
+        DEV, torch.Generator(device=DEV).manual_seed(7))
+    pbytes, cbytes = _tree_bytes(params), _tree_bytes(cache)
+    bound = lm_decode_bound_ms(cfg, pbytes, shape.global_batch,
+                               shape.seq_len, 2)
+    ms, busy = {}, {}
+    with torch.no_grad():
+        for name, cell in cells.items():
+            cell.fn(params, cache, batch, last)            # warm-up
+            torch.cuda.synchronize()
+            ms[name] = []
+            for i in range(LAUNCH_DECODE_STEPS):
+                t0 = time.perf_counter()
+                logits, _ = cell.fn(params, cache, batch,
+                                    last - LAUNCH_DECODE_STEPS + 1 + i)
+                torch.cuda.synchronize()
+                ms[name].append(1e3 * (time.perf_counter() - t0))
+            assert torch.isfinite(logits).all()
+            busy[name] = 1e3 * profile_call(
+                lambda: cell.fn(params, cache, batch, last),
+                f"{cell.name} {name}, one step")["device_busy_s"]
+    print(f"[launch] (d) {cells['default'].name} at its published S = "
+          f"{shape.seq_len} with B cut from {pub.global_batch} to "
+          f"{shape.global_batch} (one card): params {pbytes / 1e9:.2f} GB, "
+          f"cache {cbytes / 1e9:.2f} GB; bound {bound:.3f} ms by bytes; "
+          + "; ".join(f"{k} {LAUNCH_DECODE_STEPS} steps median "
+                      f"{np.median(v):.3f} ms (min {min(v):.3f}, max "
+                      f"{max(v):.3f}), device busy {busy[k]:.3f} ms of a "
+                      "profiled step" for k, v in ms.items()))
+    return shape, {k: float(np.median(v)) for k, v in ms.items()}, bound
+
+
+def _launch_dryrun(shape, decode_ms):
+    """Phase 10 (e): the dry run of one architecture on meta over its
+    shapes on the 16x16 mesh plan, then (d)'s cell on one device beside
+    its measured step."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import ONE_DEVICE
+    with tempfile.TemporaryDirectory() as wd:
+        t0 = time.perf_counter()
+        rc = dryrun.main(["--arch", LAUNCH_DRYRUN_ARCH, "--mesh", "single",
+                          "--out", str(pathlib.Path(wd) / "dryrun.json")]
+                         + (["--reduced"] if LM_REDUCED else []))
+        took = time.perf_counter() - t0
+    print(f"[launch] (e) dry run of {LAUNCH_DRYRUN_ARCH} on meta, 16x16 "
+          f"mesh plan: exit {rc} in {took:.1f} s")
+    assert rc == 0
+    cfg = _lm_base() if LM_REDUCED else get_config(LAUNCH_DRYRUN_ARCH)
+    for name, opt in (("default", False), ("OPTIMIZED", True)):
+        rec = dryrun.run_cell(cfg, shape, ONE_DEVICE, optimized=opt)
+        assert rec["status"] == "ok", rec
+        print(f"[launch] (e) {rec['arch']}:{rec['shape']} B="
+              f"{shape.global_batch} on one device, {name}: counted "
+              f"{rec['hbm_bytes'] / 1e9:.3f} GB and {rec['flops']:.4g} "
+              f"flops, memory_s {1e3 * rec['memory_s']:.3f} ms, compute_s "
+              f"{1e3 * rec['compute_s']:.4f} ms; measured step (d) "
+              f"{decode_ms[name]:.3f} ms = "
+              f"{decode_ms[name] / (1e3 * rec['memory_s']):.2f}x memory_s")
+
+
+def phase_launch(serving, full_remat):
+    """Phase 10; returns the kernel launch counts of its paths (none:
+    the LM levers and the launch cells reach no TPU-kernel counterpart)."""
+    import torch
+    from repro_torch.kernels.cim_mvm import kernel
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[launch] card: {gpu_line()}")
+    kernel.reset_launch_counts()
+    took = {}
+    t0 = time.perf_counter()
+    _launch_serving(serving)
+    took["a"] = time.perf_counter() - t0
+    for part, fn in (("b", _launch_prefill),
+                     ("c", lambda: _launch_dots(full_remat))):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        fn()
+        took[part] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    shape, decode_ms, _ = _launch_decode_cell()
+    took["d"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _launch_dryrun(shape, decode_ms)
+    took["e"] = time.perf_counter() - t0
+    print("[launch] seconds: " + ", ".join(f"({k}) {v:.1f}"
+                                           for k, v in took.items()))
+    launches = dict(kernel.LAUNCHES)
+    print(f"[launch] kernel launches {launches}; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     assert sum(launches.values()) == 0, launches
     return launches
@@ -1706,9 +2026,11 @@ def main() -> int:
     fault_launches, puma_forward = phase_faults()
     by_path = {"main": launches, "faults": fault_launches,
                "fleet": phase_fleet(graph), "dse": phase_dse(graph)}
-    by_path["lm"], lm_forward = phase_lm()
+    by_path["lm"], lm_forward, serving = phase_lm()
     torch.cuda.empty_cache()
-    by_path["train"] = phase_train()
+    by_path["train"], full_remat = phase_train()
+    torch.cuda.empty_cache()
+    by_path["launch"] = phase_launch(serving, full_remat)
     for name, row in rows.items():
         row["launches_by_path"] = {p: n[name] for p, n in by_path.items()}
     rows["cim_mvm_tiles"]["puma_faulted_forward"] = puma_forward

@@ -19,11 +19,12 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .perfopts import require_default
+from .perfopts import current
 
 Params = Dict[str, Any]
 
 NEG_INF = -1e30
+F32 = torch.float32
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +152,8 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
     freqs = rope_freqs(d, theta, x.device)                  # (D/2,)
     sec_ids = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))            # (D/2,)
+        torch.tensor(sections, device=x.device),
+        output_size=d // 2)                                 # (D/2,)
     p = torch.movedim(positions3, 0, -1)                    # (..., S, 3)
     ang = p[..., sec_ids].float() * freqs                   # (..., S, D/2)
     return _rotate(x, ang)
@@ -183,6 +185,20 @@ def _block_mask(qi: int, kj: int, spec: AttnSpec, q_block: int,
     return m
 
 
+def _visible_pairs(nq: int, nk: int, qb: int, kb: int, spec: AttnSpec):
+    """(q-block, kv-block) pairs with at least one unmasked element."""
+    pairs = []
+    for qi in range(nq):
+        for kj in range(nk):
+            if spec.causal and kj * kb > qi * qb + qb - 1:
+                continue
+            if spec.window is not None and \
+                    kj * kb + kb - 1 <= qi * qb - spec.window:
+                continue
+            pairs.append((qi, kj))
+    return pairs
+
+
 def pad_seq(t: torch.Tensor, n: int) -> torch.Tensor:
     """Zero-pad axis 1 of a (B, S, ...) tensor by ``n``."""
     return F.pad(t, (0, 0) * (t.dim() - 2) + (0, n)) if n else t
@@ -195,9 +211,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (B, S, Hq, D); k, v: (B, S, Hkv, D); Hq % Hkv == 0.
     Memory is O(q_block x kv_block) per step instead of O(S^2).  Every
     (q block, kv block) pair is visited, masked ones too, as the
-    reference's scan does.
+    reference's scan does; with ``PerfOpts.triangular_attention`` and a
+    causal or windowed spec, only the visible pairs (the causal lower
+    triangle, the window's band), as the reference's ``_pair_attention``
+    does.  A q block then skips only fully masked kv blocks, whose
+    updates leave its online softmax as it was, so the two agree.
     """
-    require_default("triangular_attention")
     b, sq, hq, d = q.shape
     s = k.shape[1]
     dv = v.shape[-1]                 # may differ from d (MLA)
@@ -215,6 +234,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kr = k.reshape(b, nk, kb, hkv, d)
     vr = v.reshape(b, nk, kb, hkv, dv)
 
+    if current().triangular_attention and (spec.causal or
+                                           spec.window is not None):
+        pairs = _visible_pairs(nq, nk, qb, kb, spec)
+    else:
+        pairs = [(qi, kj) for qi in range(nq) for kj in range(nk)]
+    kv_blocks = [[] for _ in range(nq)]
+    for qi, kj in pairs:
+        kv_blocks[qi].append(kj)
+
     outs = []
     for qi in range(nq):
         qblk = qr[:, qi].float() * scale                # (B,qb,hkv,g,D)
@@ -223,7 +251,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = torch.zeros((b, hkv, g, qb), dtype=torch.float32, device=q.device)
         acc = torch.zeros((b, hkv, g, qb, dv), dtype=torch.float32,
                           device=q.device)
-        for kj in range(nk):
+        for kj in kv_blocks[qi]:
             kblk = kr[:, kj].float()
             vblk = vr[:, kj].float()
             sblk = torch.einsum("bqhgd,bkhd->bhgqk", qblk, kblk)
@@ -246,32 +274,81 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out[:, :sq]
 
 
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm`` with float32 results from operands in their own
+    dtype (JAX's ``preferred_element_type=float32``)."""
+    if a.dtype == b.dtype == F32:
+        return torch.bmm(a, b)
+    if a.device.type == "cpu":          # the CPU build has no bmm.dtype
+        return torch.bmm(a.float(), b.float())
+    return torch.bmm(a, b, out_dtype=F32)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, length,
-                     spec: AttnSpec = AttnSpec()) -> torch.Tensor:
+                     spec: AttnSpec = AttnSpec(),
+                     extra_kv=None, invalid_slot=None) -> torch.Tensor:
     """Single-step attention over a KV cache.
 
     q: (B, 1, Hq, D); caches: (B, S, Hkv, D); length: current length
     (entries with index < length are valid).
+
+    ``extra_kv=(k_new, v_new)`` — append-style decode: the cache holds
+    only past tokens and the current token's K/V ride separately,
+    joined by a two-part online softmax; the caller writes them to the
+    cache afterwards.  ``invalid_slot`` masks the rolling-window slot
+    about to be overwritten (it holds the expired token).
+
+    Under ``PerfOpts.decode_opt`` the cache is read in its storage dtype
+    with float32 results and no float32 copy of it is made: one ``bmm``
+    per sequence views its (S, Hkv, D) slice as Hkv matrices in place.
     """
-    require_default("decode_opt")
+    opt = current().decode_opt
     b, _, hq, d = q.shape
     hkv = k_cache.shape[2]
     g = hq // hkv
     s = k_cache.shape[1]
     scale = 1.0 / math.sqrt(d)
-    qr = q.reshape(b, hkv, g, d).float() * scale
-    scores = torch.einsum("bhgd,bshd->bhgs", qr, k_cache.float())
+    if opt:
+        qr = (q.reshape(b, hkv, g, d).float() * scale).to(k_cache.dtype)
+        scores = torch.stack([_bmm_f32(qr[i], k_cache[i].permute(1, 2, 0))
+                              for i in range(b)])
+    else:
+        qr = q.reshape(b, hkv, g, d).float() * scale
+        scores = torch.einsum("bhgd,bshd->bhgs", qr, k_cache.float())
     if spec.logit_softcap is not None:
         scores = torch.tanh(scores / spec.logit_softcap) * spec.logit_softcap
     pos = torch.arange(s, device=q.device)
     valid = pos[None] < length
     if spec.window is not None:
         valid = valid & (pos[None] > length - 1 - spec.window)
+    if invalid_slot is not None:
+        valid = valid & (pos[None] != invalid_slot)
     scores = torch.where(valid[:, None, None], scores, NEG_INF)
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
-    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+    def attend(p):                      # (B, Hkv, g, S) -> (B, Hkv, g, D)
+        if opt:
+            p = p.to(v_cache.dtype)
+            return torch.stack([_bmm_f32(p[i], v_cache[i].transpose(0, 1))
+                                for i in range(b)])
+        return torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+
+    if extra_kv is None:
+        out = attend(torch.softmax(scores, dim=-1))
+        return out.reshape(b, 1, hq, d).to(q.dtype)
+
+    k_new, v_new = extra_kv                        # (B, 1, Hkv, D)
+    s_new = torch.einsum("bhgd,bshd->bhgs", qr.float(),
+                         k_new.float())[..., 0]     # (B, Hkv, g)
+    if spec.logit_softcap is not None:
+        s_new = torch.tanh(s_new / spec.logit_softcap) * spec.logit_softcap
+    m = torch.maximum(scores.amax(dim=-1), s_new)
+    p_cache = torch.exp(scores - m[..., None])
+    p_new = torch.exp(s_new - m)
+    denom = p_cache.sum(dim=-1) + p_new
+    ctx = attend(p_cache) + p_new[..., None] \
+        * v_new[:, 0, :, None, :].float()
+    return (ctx / denom[..., None]).reshape(b, 1, hq, d).to(q.dtype)
 
 
 def cache_update(cache: torch.Tensor, new: torch.Tensor,
@@ -285,6 +362,23 @@ def cache_update(cache: torch.Tensor, new: torch.Tensor,
     start = min(max(int(pos), 0), cache.shape[1] - n)
     cache[:, start:start + n] = new.to(cache.dtype)
     return cache
+
+
+def with_sharding_constraint(t: torch.Tensor, mesh,
+                             spec: Tuple) -> torch.Tensor:
+    """``jax.lax.with_sharding_constraint`` for a cell that runs on one
+    device: ``spec`` (a partition-spec tuple over the axes of ``mesh``,
+    a ``launch.mesh.Mesh``) is checked against ``t`` and ``mesh``, and
+    ``t`` comes back unchanged, as a constraint leaves the data where
+    one device holds every shard.  The port has no SPMD partitioner."""
+    if len(spec) > t.dim():
+        raise ValueError(f"spec {spec} has more entries than a "
+                         f"{t.dim()}-d tensor has dims")
+    for part in spec:
+        for ax in part if isinstance(part, tuple) else (part,):
+            if ax is not None and ax not in mesh.shape:
+                raise ValueError(f"spec {spec}: the mesh has no axis {ax!r}")
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -339,9 +433,12 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, wi: torch.Tensor,
 
     Tokens are processed in chunks; per chunk every expert receives at
     most C = ceil(top_k * chunk * cf / E) tokens, claimed in token order
-    by a cumulative count (overflow drops — standard).
+    by a cumulative count (overflow drops — standard).  Under
+    ``PerfOpts.moe_capacity_shard`` and a mesh, each chunk's per-expert
+    token buffers take the reference's ``(None, "data", None)``
+    constraint.
     """
-    require_default("moe_capacity_shard", "mesh")
+    opts = current()
     b, s, d = x.shape
     e = router_w.shape[-1]
     tokens = x.reshape(b * s, d)
@@ -378,6 +475,8 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, wi: torch.Tensor,
             disp = disp + dk
             comb = comb + dk.float() * weights[:, j][:, None, None]
         xe = torch.einsum("tec,td->ecd", disp, xt)       # (e, cap, d)
+        if opts.moe_capacity_shard and opts.mesh is not None:
+            xe = with_sharding_constraint(xe, opts.mesh, (None, "data", None))
         h = torch.bmm(xe, wi)
         g = _act(torch.bmm(xe, wg), act)
         ye = torch.bmm(h * g, wo)                        # (e, cap, d)

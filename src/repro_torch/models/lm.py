@@ -14,7 +14,10 @@ Parameters are nested dicts with the reference's tree: the repeating
 ``cfg.unit`` recipe's leaves are stacked on a leading repeat axis, and
 the reference's ``lax.scan`` over that axis is a Python loop over the
 repeat index here.  Weights take ``cfg.dtype``; norms, SSM decay and
-skip terms and the MoE router stay float32, as in the reference.
+skip terms and the MoE router stay float32, as in the reference.  A
+parallel tree of logical axes (``logical_axes``, ``cache_axes``) is
+read by ``launch/sharding.py``; the ``PerfOpts`` levers
+(``models/perfopts.py``) act where the reference's do.
 Entry points: ``init_params`` / ``params_from_reference``, ``forward``
 / ``logits_fn`` / ``lm_loss`` (differentiable, with the reference's
 activation checkpointing under ``remat``), ``prefill`` and
@@ -24,12 +27,14 @@ allocated once at ``cache_len`` and ``decode_step`` updates it in place.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import LayerSpec, ModelConfig
 from ..kernels.backend import resolve_device
@@ -37,8 +42,9 @@ from . import ssm as ssm_mod
 from .layers import (AttnSpec, TensorSpec, apply_mrope, apply_rope,
                      attention, cache_update, decode_attention, dense_mlp,
                      gated_mlp, init_from_specs, moe_mlp, rms_norm, softcap,
-                     tree_leaves, tree_map, tree_unflatten)
-from .perfopts import require_default
+                     tree_leaves, tree_map, tree_unflatten,
+                     with_sharding_constraint)
+from .perfopts import current
 
 Params = Dict[str, Any]
 
@@ -51,28 +57,35 @@ F32 = torch.float32
 
 
 # ---------------------------------------------------------------------------
-# Parameter specs
+# Parameter specs + logical axes
 # ---------------------------------------------------------------------------
 
 def _attn_specs(cfg: ModelConfig):
     d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     sp = {"wq": _sds(cfg, (d, h * hd)), "wk": _sds(cfg, (d, k * hd)),
           "wv": _sds(cfg, (d, k * hd)), "wo": _sds(cfg, (h * hd, d))}
+    ax = {"wq": ("embed", "heads"), "wk": ("embed", "kv"),
+          "wv": ("embed", "kv"), "wo": ("heads", "embed")}
     if cfg.qkv_bias:
         sp.update({"bq": _sds(cfg, (h * hd,)), "bk": _sds(cfg, (k * hd,)),
                    "bv": _sds(cfg, (k * hd,))})
-    return sp
+        ax.update({"bq": ("heads",), "bk": ("kv",), "bv": ("kv",)})
+    return sp, ax
 
 
 def _mla_specs(cfg: ModelConfig):
     d, h = cfg.d_model, cfg.n_heads
     qd = cfg.qk_nope_dim + cfg.qk_rope_dim
-    return {"wq": _sds(cfg, (d, h * qd)),
-            "w_dkv": _sds(cfg, (d, cfg.kv_lora + cfg.qk_rope_dim)),
-            "kv_norm": _sds(cfg, (cfg.kv_lora,), F32),
-            "w_uk": _sds(cfg, (cfg.kv_lora, h * cfg.qk_nope_dim)),
-            "w_uv": _sds(cfg, (cfg.kv_lora, h * cfg.v_head_dim)),
-            "wo": _sds(cfg, (h * cfg.v_head_dim, d))}
+    sp = {"wq": _sds(cfg, (d, h * qd)),
+          "w_dkv": _sds(cfg, (d, cfg.kv_lora + cfg.qk_rope_dim)),
+          "kv_norm": _sds(cfg, (cfg.kv_lora,), F32),
+          "w_uk": _sds(cfg, (cfg.kv_lora, h * cfg.qk_nope_dim)),
+          "w_uv": _sds(cfg, (cfg.kv_lora, h * cfg.v_head_dim)),
+          "wo": _sds(cfg, (h * cfg.v_head_dim, d))}
+    ax = {"wq": ("embed", "heads"), "w_dkv": ("embed", None),
+          "kv_norm": (None,), "w_uk": (None, "heads"),
+          "w_uv": (None, "heads"), "wo": ("heads", "embed")}
+    return sp, ax
 
 
 def _ssm_specs(cfg: ModelConfig):
@@ -80,83 +93,132 @@ def _ssm_specs(cfg: ModelConfig):
     di = cfg.d_inner
     h = cfg.n_ssm_heads
     n = cfg.ssm_state
-    return {"w_z": _sds(cfg, (d, di)), "w_x": _sds(cfg, (d, di)),
-            "w_B": _sds(cfg, (d, n)), "w_C": _sds(cfg, (d, n)),
-            "w_dt": _sds(cfg, (d, h)),
-            "A_log": _sds(cfg, (h,), F32), "D_skip": _sds(cfg, (h,), F32),
-            "dt_bias": _sds(cfg, (h,), F32),
-            "ssm_norm": _sds(cfg, (di,), F32),
-            "out_proj": _sds(cfg, (di, d))}
+    sp = {"w_z": _sds(cfg, (d, di)), "w_x": _sds(cfg, (d, di)),
+          "w_B": _sds(cfg, (d, n)), "w_C": _sds(cfg, (d, n)),
+          "w_dt": _sds(cfg, (d, h)),
+          "A_log": _sds(cfg, (h,), F32), "D_skip": _sds(cfg, (h,), F32),
+          "dt_bias": _sds(cfg, (h,), F32),
+          "ssm_norm": _sds(cfg, (di,), F32),
+          "out_proj": _sds(cfg, (di, d))}
+    ax = {"w_z": ("embed", "inner"), "w_x": ("embed", "inner"),
+          "w_B": ("embed", None), "w_C": ("embed", None),
+          "w_dt": ("embed", None), "A_log": (None,), "D_skip": (None,),
+          "dt_bias": (None,), "ssm_norm": (None,),
+          "out_proj": ("inner", "embed")}
+    return sp, ax
 
 
 def _mlp_specs(cfg: ModelConfig, kind: str):
     d, f = cfg.d_model, cfg.d_ff
     if kind == "none":
-        return {}
+        return {}, {}
     if kind == "gated":
-        return {"wi": _sds(cfg, (d, f)), "wg": _sds(cfg, (d, f)),
-                "wo_mlp": _sds(cfg, (f, d))}
+        return ({"wi": _sds(cfg, (d, f)), "wg": _sds(cfg, (d, f)),
+                 "wo_mlp": _sds(cfg, (f, d))},
+                {"wi": ("embed", "mlp"), "wg": ("embed", "mlp"),
+                 "wo_mlp": ("mlp", "embed")})
     if kind == "dense":
-        return {"wi": _sds(cfg, (d, f)), "wo_mlp": _sds(cfg, (f, d))}
+        return ({"wi": _sds(cfg, (d, f)), "wo_mlp": _sds(cfg, (f, d))},
+                {"wi": ("embed", "mlp"), "wo_mlp": ("mlp", "embed")})
     if kind == "moe":
         e, fm = cfg.n_experts, cfg.moe_d_ff
         sp = {"router": _sds(cfg, (d, e), F32),
               "wi": _sds(cfg, (e, d, fm)), "wg": _sds(cfg, (e, d, fm)),
               "wo_mlp": _sds(cfg, (e, fm, d))}
+        ax = {"router": ("embed", None),
+              "wi": ("expert", "embed", "mlp_e"),
+              "wg": ("expert", "embed", "mlp_e"),
+              "wo_mlp": ("expert", "mlp_e", "embed")}
         if cfg.n_shared_experts:
             fs = fm * cfg.n_shared_experts
             sp.update({"swi": _sds(cfg, (d, fs)), "swg": _sds(cfg, (d, fs)),
                        "swo": _sds(cfg, (fs, d))})
-        return sp
+            ax.update({"swi": ("embed", "mlp"), "swg": ("embed", "mlp"),
+                       "swo": ("mlp", "embed")})
+        return sp, ax
     raise ValueError(kind)
 
 
 def _layer_specs(cfg: ModelConfig, spec: LayerSpec, cross_attn: bool = False):
     sp: Params = {"norm": _sds(cfg, (cfg.d_model,), F32)}
+    ax: Params = {"norm": (None,)}
     if spec.mixer == "attn":
-        sp.update(_attn_specs(cfg))
+        _merge(sp, ax, _attn_specs(cfg))
     elif spec.mixer == "mla":
-        sp.update(_mla_specs(cfg))
+        _merge(sp, ax, _mla_specs(cfg))
     elif spec.mixer == "ssm":
-        sp.update(_ssm_specs(cfg))
+        _merge(sp, ax, _ssm_specs(cfg))
     elif spec.mixer == "hybrid":
-        sp["attn"] = _attn_specs(cfg)
-        s = _ssm_specs(cfg)
-        del s["w_z"]                    # hymba branch: no gate path
-        sp["ssm"] = s
+        sp["attn"], ax["attn"] = _attn_specs(cfg)
+        s, a = _ssm_specs(cfg)
+        del s["w_z"], a["w_z"]          # hymba branch: no gate path
+        sp["ssm"], ax["ssm"] = s, a
         sp.update({"fuse_a": _sds(cfg, (cfg.d_model,), F32),
                    "fuse_s": _sds(cfg, (cfg.d_model,), F32)})
+        ax.update({"fuse_a": (None,), "fuse_s": (None,)})
     else:
         raise ValueError(spec.mixer)
     if cross_attn:
-        sp["cross"] = _attn_specs(cfg)
+        sp["cross"], ax["cross"] = _attn_specs(cfg)
         sp["cross_norm"] = _sds(cfg, (cfg.d_model,), F32)
+        ax["cross_norm"] = (None,)
     if spec.mlp != "none":
         sp["mlp_norm"] = _sds(cfg, (cfg.d_model,), F32)
-        sp.update(_mlp_specs(cfg, spec.mlp))
-    return sp
+        ax["mlp_norm"] = (None,)
+        _merge(sp, ax, _mlp_specs(cfg, spec.mlp))
+    return sp, ax
+
+
+def _merge(sp: Params, ax: Params, more) -> None:
+    sp.update(more[0])
+    ax.update(more[1])
 
 
 def _stack(tree: Params, n: int) -> Params:
     return tree_map(lambda x: TensorSpec((n,) + x.shape, x.dtype), tree)
 
 
+def _stack_axes(tree: Params) -> Params:
+    """``tree`` of logical-axes tuples with a leading "layers" axis."""
+    if isinstance(tree, dict):
+        return {k: _stack_axes(v) for k, v in tree.items()}
+    return ("layers",) + tuple(tree)
+
+
 def param_specs(cfg: ModelConfig) -> Params:
     """The parameter tree's ``TensorSpec`` leaves: the reference's tree
     and shapes."""
+    return _specs_and_axes(cfg)[0]
+
+
+def logical_axes(cfg: ModelConfig) -> Params:
+    """The parameter tree's logical axes (a tuple of axis names or None
+    per leaf), read by ``launch.sharding``: the reference's."""
+    return _specs_and_axes(cfg)[1]
+
+
+def _specs_and_axes(cfg: ModelConfig):
+    # the embedding's feature dim stays unsharded, as in the reference
     sp: Params = {"embed": _sds(cfg, (cfg.vocab, cfg.d_model)),
                   "final_norm": _sds(cfg, (cfg.d_model,), F32)}
+    ax: Params = {"embed": ("vocab", None), "final_norm": (None,)}
     if cfg.pre:
-        sp["pre"] = tuple(_layer_specs(cfg, spec) for spec in cfg.pre)
+        pre = [_layer_specs(cfg, spec) for spec in cfg.pre]
+        sp["pre"] = tuple(s for s, _ in pre)
+        ax["pre"] = tuple(a for _, a in pre)
     r = cfg.n_unit_repeats
-    sp["unit"] = {f"u{i}": _stack(_layer_specs(cfg, spec,
-                                               cross_attn=cfg.enc_dec), r)
-                  for i, spec in enumerate(cfg.unit)}
+    sp["unit"], ax["unit"] = {}, {}
+    for i, spec in enumerate(cfg.unit):
+        s, a = _layer_specs(cfg, spec, cross_attn=cfg.enc_dec)
+        sp["unit"][f"u{i}"] = _stack(s, r)
+        ax["unit"][f"u{i}"] = _stack_axes(a)
     if cfg.enc_dec:
-        es = _layer_specs(cfg, LayerSpec(mixer="attn", mlp="dense"))
-        sp["enc_unit"] = _stack(es, cfg.n_enc_layers)
+        s, a = _layer_specs(cfg, LayerSpec(mixer="attn", mlp="dense"))
+        sp["enc_unit"] = _stack(s, cfg.n_enc_layers)
+        ax["enc_unit"] = _stack_axes(a)
         sp["enc_norm"] = _sds(cfg, (cfg.d_model,), F32)
-    return sp
+        ax["enc_norm"] = (None,)
+    return sp, ax
 
 
 def _fix_ssm_init(params: Params) -> Params:
@@ -241,11 +303,33 @@ def _rope_qk(cfg: ModelConfig, q, k, positions, positions3):
     return q, k
 
 
+def attn_reshard_spec(n_heads: int) -> Optional[tuple]:
+    """The partition spec the ``attn_reshard`` lever gives a (B, S, H,
+    D) attention activation with ``n_heads`` heads under the current
+    options, or None where it gives none: batch on the batch axes, heads
+    on "model" where they divide it, else replicated over "model"."""
+    opts = current()
+    if opts.attn_reshard == "none" or opts.mesh is None:
+        return None
+    batch = opts.batch_axes if len(opts.batch_axes) > 1 \
+        else opts.batch_axes[0]
+    head_ax = "model" if n_heads % opts.mesh.shape["model"] == 0 else None
+    return (batch, None, head_ax, None)
+
+
+def _attn_reshard(t: torch.Tensor) -> torch.Tensor:
+    """PerfOpts lever: the reference's sharding constraint on an
+    attention activation (identity on one device)."""
+    spec = attn_reshard_spec(t.shape[2])
+    if spec is None:
+        return t
+    return with_sharding_constraint(t, current().mesh, spec)
+
+
 def attn_mixer(p: Params, cfg: ModelConfig, spec: LayerSpec, x, positions,
                positions3=None, causal=True):
-    # the attention-resharding lever places activations on a mesh
-    require_default("attn_reshard", "mesh")
     q, k, v = _qkv(p, cfg, x)
+    q, k, v = _attn_reshard(q), _attn_reshard(k), _attn_reshard(v)
     q, k = _rope_qk(cfg, q, k, positions, positions3)
     out = attention(q, k, v, _attn_spec(cfg, spec, causal))
     b, s, _, _ = q.shape
@@ -395,23 +479,40 @@ def _positions(batch, s: int, device) -> torch.Tensor:
     return positions
 
 
-def _checkpointed(remat: bool, fn, *args):
+def _checkpointed(remat: bool, fn, *args, policy: str = "full"):
     """``fn(*args)``, under activation checkpointing when ``remat`` is on
     and autograd records: its activations are recomputed in the
-    backward instead of kept (the reference's ``jax.checkpoint``)."""
-    if remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+    backward instead of kept (the reference's ``jax.checkpoint``).
+    ``policy="dots"`` keeps the outputs of matmuls without batch dims
+    and recomputes the rest (``dots_with_no_batch_dims_saveable``)."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn(*args)
+    if policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=partial(
+                              create_selective_checkpoint_contexts,
+                              _dots_policy))
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+#: aten matmuls without batch dims: a (..., K) @ (K, N) projection
+#: reaches ``mm``; the attention and MoE einsums reach ``bmm``
+_NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _NO_BATCH_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             remat: bool = False) -> torch.Tensor:
     """Token (+stub-modality) inputs -> final hidden states (B,S,D).
 
-    ``remat`` checkpoints each repeat of the layer unit (and each encoder
-    layer): the reference's ``remat_policy="full"``; "dots" raises."""
-    if remat:
-        require_default("remat_policy")
+    ``remat`` checkpoints each repeat of the layer unit with the
+    ``PerfOpts.remat_policy`` ("full" or "dots"), and each encoder layer
+    fully whatever the policy, as the reference does."""
     x = _embed(params, cfg, batch)
     positions = _positions(batch, x.shape[1], x.device)
     positions3 = batch.get("positions3")
@@ -429,15 +530,14 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                                  positions3, enc_out)
         return x
 
+    policy = current().remat_policy
     for unit_p in _unstack(params["unit"], cfg.n_unit_repeats):
-        x = _checkpointed(remat, unit, x, unit_p)
+        x = _checkpointed(remat, unit, x, unit_p, policy=policy)
     return rms_norm(x, params["final_norm"])
 
 
 def encode(params: Params, cfg: ModelConfig, enc_embeds: torch.Tensor,
            remat: bool = False) -> torch.Tensor:
-    if remat:
-        require_default("remat_policy")
     x = enc_embeds.to(cfg.dtype)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     spec = LayerSpec(mixer="attn", mlp="dense")
@@ -502,45 +602,74 @@ def _layer_cache_specs(cfg: ModelConfig, spec: LayerSpec, batch: int,
                        seq_len: int):
     cl = _cache_seq_len(cfg, spec, seq_len)
     k, hd = cfg.n_kv_heads, cfg.head_dim
+    kv = _sds(cfg, (batch, cl, k, hd))
+    kv_ax = ("batch", "kvseq", None, None)
     state = _sds(cfg, (batch, cfg.n_ssm_heads, cfg.ssm_headdim,
                        cfg.ssm_state), F32)
+    state_ax = ("batch", "ssm_heads", None, None)
     if spec.mixer == "attn":
-        return {"k": _sds(cfg, (batch, cl, k, hd)),
-                "v": _sds(cfg, (batch, cl, k, hd))}
+        return {"k": kv, "v": kv}, {"k": kv_ax, "v": kv_ax}
     if spec.mixer == "mla":
-        return {"ckv": _sds(cfg, (batch, cl, cfg.kv_lora)),
-                "kr": _sds(cfg, (batch, cl, cfg.qk_rope_dim))}
+        return ({"ckv": _sds(cfg, (batch, cl, cfg.kv_lora)),
+                 "kr": _sds(cfg, (batch, cl, cfg.qk_rope_dim))},
+                {"ckv": ("batch", "kvseq", None),
+                 "kr": ("batch", "kvseq", None)})
     if spec.mixer == "ssm":
-        return {"h": state}
+        return {"h": state}, {"h": state_ax}
     if spec.mixer == "hybrid":
-        return {"k": _sds(cfg, (batch, cl, k, hd)),
-                "v": _sds(cfg, (batch, cl, k, hd)), "h": state}
+        return ({"k": kv, "v": kv, "h": state},
+                {"k": kv_ax, "v": kv_ax, "h": state_ax})
     raise ValueError(spec.mixer)
+
+
+def _cache_specs_and_axes(cfg: ModelConfig, batch: int, seq_len: int,
+                          enc_len: int):
+    sp: Params = {}
+    ax: Params = {}
+    if cfg.pre:
+        pre = [_layer_cache_specs(cfg, spec, batch, seq_len)
+               for spec in cfg.pre]
+        sp["pre"] = tuple(s for s, _ in pre)
+        ax["pre"] = tuple(a for _, a in pre)
+    r = cfg.n_unit_repeats
+    sp["unit"], ax["unit"] = {}, {}
+    for i, spec in enumerate(cfg.unit):
+        s, a = _layer_cache_specs(cfg, spec, batch, seq_len)
+        sp["unit"][f"u{i}"] = _stack(s, r)
+        ax["unit"][f"u{i}"] = _stack_axes(a)
+    if cfg.enc_dec:
+        k, hd = cfg.n_kv_heads, cfg.head_dim
+        sp["cross"] = {"k": _sds(cfg, (r, batch, enc_len, k, hd)),
+                       "v": _sds(cfg, (r, batch, enc_len, k, hd))}
+        ax["cross"] = {"k": ("layers", "batch", None, None, None),
+                       "v": ("layers", "batch", None, None, None)}
+    return sp, ax
 
 
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int,
                 enc_len: int = 0) -> Params:
     """The decode cache's ``TensorSpec`` tree (the reference's tree and
     shapes; K/V in ``cfg.dtype``, SSM states in float32)."""
-    sp: Params = {}
-    if cfg.pre:
-        sp["pre"] = tuple(_layer_cache_specs(cfg, spec, batch, seq_len)
-                          for spec in cfg.pre)
-    r = cfg.n_unit_repeats
-    sp["unit"] = {f"u{i}": _stack(_layer_cache_specs(cfg, spec, batch,
-                                                     seq_len), r)
-                  for i, spec in enumerate(cfg.unit)}
-    if cfg.enc_dec:
-        k, hd = cfg.n_kv_heads, cfg.head_dim
-        sp["cross"] = {"k": _sds(cfg, (r, batch, enc_len, k, hd)),
-                       "v": _sds(cfg, (r, batch, enc_len, k, hd))}
-    return sp
+    return _cache_specs_and_axes(cfg, batch, seq_len, enc_len)[0]
+
+
+def cache_axes(cfg: ModelConfig, batch: int, seq_len: int,
+               enc_len: int = 0) -> Params:
+    """The decode cache's logical axes: the reference's."""
+    return _cache_specs_and_axes(cfg, batch, seq_len, enc_len)[1]
 
 
 def _decode_mixer(p, cfg, spec, h, cache, pos: int, positions3=None):
     """One-token mixer against the cache, which it updates in place;
-    returns y."""
+    returns y.
+
+    Under ``PerfOpts.decode_opt`` the mixer attends over the past
+    entries plus the current token's K/V (append style) and writes the
+    token into the cache afterwards; the reference's ``decode_step``
+    writes every layer's token after its scan, which reads the same
+    entries, because a layer attends over its own cache only."""
     b = h.shape[0]
+    append = current().decode_opt
     if spec.mixer in ("attn", "hybrid"):
         ap = p["attn"] if spec.mixer == "hybrid" else p
         q, k, v = _qkv(ap, cfg, h)
@@ -555,11 +684,19 @@ def _decode_mixer(p, cfg, spec, h, cache, pos: int, positions3=None):
         slot = pos if spec.window is None else pos % cl
         aspec = AttnSpec(causal=True, window=None,
                          logit_softcap=cfg.attn_softcap)
-        cache_update(cache["k"], k, slot)
-        cache_update(cache["v"], v, slot)
-        # rolling window cache: slots < min(pos+1, cl) are valid
-        length = pos + 1 if spec.window is None else min(pos + 1, cl)
-        out = decode_attention(q, cache["k"], cache["v"], length, aspec)
+        if append:
+            length = pos if spec.window is None else min(pos, cl)
+            inv = slot if spec.window is not None else None
+            out = decode_attention(q, cache["k"], cache["v"], length, aspec,
+                                   extra_kv=(k, v), invalid_slot=inv)
+            cache_update(cache["k"], k, slot)
+            cache_update(cache["v"], v, slot)
+        else:
+            cache_update(cache["k"], k, slot)
+            cache_update(cache["v"], v, slot)
+            # rolling window cache: slots < min(pos+1, cl) are valid
+            length = pos + 1 if spec.window is None else min(pos + 1, cl)
+            out = decode_attention(q, cache["k"], cache["v"], length, aspec)
         ya = out.reshape(b, 1, -1) @ ap["wo"]
         if spec.mixer == "attn":
             return ya
@@ -582,19 +719,38 @@ def _decode_mixer(p, cfg, spec, h, cache, pos: int, positions3=None):
         ckv_new = rms_norm(dkv[..., :cfg.kv_lora], p["kv_norm"])
         kr_new = apply_rope(dkv[:, :, None, cfg.kv_lora:], posv,
                             cfg.rope_theta)[:, :, 0]
-        ckv = cache_update(cache["ckv"], ckv_new, pos)
-        kr = cache_update(cache["kr"], kr_new, pos)
+        if append:
+            ckv, kr, n_valid = cache["ckv"], cache["kr"], pos
+        else:
+            ckv = cache_update(cache["ckv"], ckv_new, pos)
+            kr = cache_update(cache["kr"], kr_new, pos)
+            n_valid = pos + 1
         # absorb W_uk into q: q' = q_nope @ W_uk^T  -> (B,H,lora)
         w_uk = p["w_uk"].reshape(cfg.kv_lora, hH, nd)
-        q_abs = torch.einsum("bhd,lhd->bhl", q_nope[:, 0], w_uk)
-        scores = (torch.einsum("bhl,bsl->bhs", q_abs.float(), ckv.float())
-                  + torch.einsum("bhr,bsr->bhs", q_rope[:, 0].float(),
-                                 kr.float()))
-        valid = torch.arange(ckv.shape[1], device=h.device)[None] < pos + 1
+        q_abs = torch.einsum("bhd,lhd->bhl", q_nope[:, 0], w_uk).float()
+        qr = q_rope[:, 0].float()
+        scores = (torch.einsum("bhl,bsl->bhs", q_abs, ckv.float())
+                  + torch.einsum("bhr,bsr->bhs", qr, kr.float()))
+        valid = torch.arange(ckv.shape[1], device=h.device)[None] < n_valid
         scores = scores / math.sqrt(nd + rd)
         scores = torch.where(valid[:, None], scores, -1e30)
-        pr = torch.softmax(scores, dim=-1)
-        ctx = torch.einsum("bhs,bsl->bhl", pr, ckv.float())   # (B,H,lora)
+        if append:
+            # two-part online softmax over the cache and the new token
+            s_new = (torch.einsum("bhl,bsl->bhs", q_abs, ckv_new.float())
+                     + torch.einsum("bhr,bsr->bhs", qr, kr_new.float())
+                     )[..., 0] / math.sqrt(nd + rd)
+            m = torch.maximum(scores.amax(dim=-1), s_new)
+            p_cache = torch.exp(scores - m[..., None])
+            p_new = torch.exp(s_new - m)
+            denom = p_cache.sum(dim=-1) + p_new
+            ctx = torch.einsum("bhs,bsl->bhl", p_cache, ckv.float())
+            ctx = (ctx + p_new[..., None] * ckv_new[:, 0, None, :].float()) \
+                / denom[..., None]
+            cache_update(cache["ckv"], ckv_new, pos)
+            cache_update(cache["kr"], kr_new, pos)
+        else:
+            pr = torch.softmax(scores, dim=-1)
+            ctx = torch.einsum("bhs,bsl->bhl", pr, ckv.float())  # (B,H,lora)
         w_uv = p["w_uv"].reshape(cfg.kv_lora, hH, vd)
         out = torch.einsum("bhl,lhd->bhd", ctx, w_uv.float()).to(h.dtype)
         return (out.reshape(b, hH * vd) @ p["wo"])[:, None]
@@ -643,7 +799,6 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
     Returns (logits (B,1,V) fp32, cache) — the cache is updated in place
     and returned.
     """
-    require_default("decode_opt", "kv_quant_int8")
     pos = int(pos)
     x = _embed(params, cfg, {"tokens": batch["tokens"]})
     positions3 = batch.get("positions3")
@@ -680,7 +835,6 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     The cache is allocated once at ``cache_len`` (default the prompt
     length) for ``decode_step`` to update in place.  SSM/hybrid states
     come from running the chunked recurrence over the prompt."""
-    require_default("kv_quant_int8")
     tokens = batch["tokens"]
     b, s = tokens.shape
     cache_len = cache_len or s

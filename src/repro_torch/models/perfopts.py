@@ -18,9 +18,10 @@ Levers (each a recorded hypothesis->measure iteration in EXPERIMENTS.md):
   * ``kv_quant_int8`` — int8 KV cache with per-(position, head) scales:
     halves the decode-attention cache traffic (memory-bound cells).
 
-This package implements the defaults only.  A lever set to anything
-but its default raises ``NotImplementedError`` where the model code
-would read it (``require_default``); it is never silently ignored.
+Every lever does here what it does in the reference.  Two are inert
+on one device: the sharding constraints of ``attn_reshard`` and
+``moe_capacity_shard`` are the identity where one device holds every
+shard, and ``kv_quant_int8`` is read by no code in either package.
 """
 from __future__ import annotations
 
@@ -46,18 +47,6 @@ _CURRENT = PerfOpts()
 
 def current() -> PerfOpts:
     return _CURRENT
-
-
-def require_default(*levers: str) -> None:
-    """Raise ``NotImplementedError`` if any of ``levers`` is set away
-    from its default in the current options."""
-    opts, base = current(), PerfOpts()
-    bad = [n for n in levers if getattr(opts, n) != getattr(base, n)]
-    if bad:
-        raise NotImplementedError(
-            f"PerfOpts {', '.join(f'{n}={getattr(opts, n)!r}' for n in bad)}"
-            ": this package implements the default path only (ROADMAP "
-            "queue 1, the PerfOpts levers)")
 
 
 @contextlib.contextmanager

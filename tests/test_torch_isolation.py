@@ -4,7 +4,7 @@ An AST scan finds no import of ``jax`` or ``repro`` in the port's
 package or in ``chip_smoke.py``; the package imports in a process where
 both are blocked; entry points asked for the default device (the LM
 model's, server's, trainer's and training CLI's too) raise when there
-is no CUDA card; and the
+is no CUDA card (the host mesh's too); and the
 port's compile store is its own and refuses the JAX package's entries.
 """
 import ast
@@ -94,6 +94,19 @@ def test_package_imports_with_jax_and_repro_blocked(tmp_path):
         f"    '--seq-len', '8', '--save-every', '1',\n"
         f"    '--workdir', {str(tmp_path)!r}]))\n"
         "assert trainer.train()['steps'] == 2\n"
+        "from repro_torch.analysis import roofline\n"
+        "from repro_torch.launch import dryrun, mesh, sharding\n"
+        "from repro_torch.models.perfopts import OPTIMIZED, use_perf_opts\n"
+        "from repro_torch.configs.base import ShapeSpec\n"
+        "cell = steps.build_cell(cfg, ShapeSpec('d', 'decode', 8, 1),\n"
+        "                        perf=OPTIMIZED)\n"
+        "assert roofline.count(cell.fn, *cell.materialize('meta'))[0] > 0\n"
+        "rec = dryrun.run_cell(cfg, ShapeSpec('p', 'prefill', 8, 1),\n"
+        "                      mesh.make_production_mesh())\n"
+        "assert rec['status'] == 'ok', rec\n"
+        "with use_perf_opts(OPTIMIZED):\n"
+        "    server.BatchServer(cfg, p, device='cpu').serve([\n"
+        "        server.Request(1, prompt=[1, 2], max_new_tokens=2)])\n"
         "print(sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'repro')\n"
         "             and sys.modules[m] is not None))\n"
@@ -164,6 +177,10 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--arch", "gemma2-2b", "--reduced", "--workdir",
                         str(tmp_path)])
+    from repro_torch.launch import mesh
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.make_host_mesh()
+    assert mesh.make_host_mesh(device="cpu").devices == ("cpu",)
     assert resolve_device("cpu") == torch.device("cpu")
 
 

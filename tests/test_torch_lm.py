@@ -31,7 +31,6 @@ from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
 from repro_torch.models import ssm as tssm
-from repro_torch.models.perfopts import PerfOpts, use_perf_opts
 
 ATOL = 1e-5          # layers and SSD, float32
 REL = 1e-4           # logits, max |delta| / max |ref|
@@ -360,7 +359,7 @@ def test_lm_loss_matches_reference(name):
     assert abs(float(got) - float(want)) <= REL * abs(float(want))
 
 
-# ------------------------------------------------------- init, levers
+# ---------------------------------------------------------------- init
 
 def test_init_params_on_cpu():
     cfg = reduced(get_config("hymba-1.5b"))
@@ -396,35 +395,3 @@ def test_params_from_reference_checks_the_tree():
     with pytest.raises(ValueError, match="shape"):
         tlm.params_from_reference(dict(tree, embed=tree["embed"][:3]), tcfg,
                                   device="cpu")
-
-
-LEVERS = [
-    (dict(triangular_attention=True), "qwen1.5-4b", "forward"),
-    (dict(attn_reshard="auto"), "qwen1.5-4b", "forward"),
-    (dict(mesh=object()), "qwen1.5-4b", "forward"),
-    (dict(moe_capacity_shard=True), "mixtral-8x7b", "forward"),
-    (dict(remat_policy="dots"), "qwen1.5-4b", "remat"),
-    (dict(decode_opt=True), "qwen1.5-4b", "decode"),
-    (dict(kv_quant_int8=True), "qwen1.5-4b", "prefill"),
-]
-
-
-@pytest.mark.parametrize("opts,name,where", LEVERS,
-                         ids=lambda v: v if isinstance(v, str)
-                         else ",".join(v) if isinstance(v, dict) else None)
-def test_unported_perf_levers_raise(opts, name, where):
-    cfg = dataclasses.replace(reduced(get_config(name)), dtype=torch.float32)
-    params = tlm.init_params(cfg, torch.Generator(), device="cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
-    _, cache = tlm.prefill(params, cfg, batch, cache_len=6)
-    calls = {
-        "forward": lambda: tlm.forward(params, cfg, batch),
-        "remat": lambda: tlm.forward(params, cfg, batch, remat=True),
-        "prefill": lambda: tlm.prefill(params, cfg, batch),
-        "decode": lambda: tlm.decode_step(
-            params, cfg, cache, {"tokens": batch["tokens"][:, :1]}, 4),
-    }
-    calls[where]()                      # the default path runs
-    with use_perf_opts(PerfOpts(**opts)):
-        with pytest.raises(NotImplementedError, match=next(iter(opts))):
-            calls[where]()
