@@ -140,10 +140,33 @@ Drives ``repro_torch`` only — it imports neither JAX nor ``repro``:
    cell; then (d)'s cell counted on one device, its ``memory_s`` beside
    the measured step.
 
+11. **Examples and tools** (``[examples]`` lines): each of the port's
+   scripts beside the JAX package's (``examples/*_torch.py``,
+   ``tools/*_torch.py``) has its ``main`` run in this process at the
+   original's own sizes on the card.  (a) ``quickstart_torch``: 592
+   crossbar reads of ``tiny_cnn`` on ``isaac-baseline`` through the
+   kernel, ``matches reference: True``, its stdout equal to the same
+   script's on ``--device cpu``; (b) ``serve_cim_fleet_torch``:
+   ResNet-18@16 and a 2-layer ViT co-resident, 12 requests, every output
+   bit-exact against a standalone ``CimBatchService`` inside the script
+   (``isaac-baseline``'s ADC never clips, so its executor runs each node
+   as one exact GEMM and launches no kernel); requests/s; (c)
+   ``compile_vit_cim_torch`` and (d) ``explore_design_space_torch`` at
+   their defaults (a fresh cache in a temporary directory), their
+   seconds; (e) ``serve_lm_torch``: tokens/s and peak memory; (f)
+   ``train_lm_torch``: the ~100M "lm-100m" model, 200 steps at B = 8,
+   S = 256: steps/s, the first and last logged loss (the last must be
+   lower), then a rerun to 220 steps on the same workdir that must
+   resume at step 200; (g) ``explain_torch`` of ResNet-18 on
+   ``jia-issc21`` as JSON, which must parse; (h)
+   ``make_golden_cim_mvm_torch --check``: all six committed goldens
+   reproduced through the kernel bit for bit.
+
 Launch counts are set to 0 just before each of phases 3, 5, 6, 7,
-8 (d), 9 and 10 and read just after; each of 3-8 must have launched
-``cim_mvm_tiles`` and ``cim_mvm``, and phases 9 and 10 neither (the LM
-substrate has no TPU kernel).  Prints one ``{"kernels": [...]}`` JSON line (``launches``
+8 (d), 9 and 10 and each script of phase 11, and read just after; each
+of 3-8 must have launched ``cim_mvm_tiles`` and ``cim_mvm``, phases 9
+and 10 neither (the LM substrate has no TPU kernel), and in phase 11
+(a) and (h) must have launched the kernel.  Prints one ``{"kernels": [...]}`` JSON line (``launches``
 is phase 3's count, ``launches_by_path`` every phase's) and the
 ``nvidia-smi`` line before the last line, which is ``{"ok": true,
 "device": {...}}``.  Any failure raises and exits non-zero without that
@@ -209,6 +232,7 @@ LAUNCH_PREFILL = (2, 4096)
 LAUNCH_DOTS_STEPS = 3
 LAUNCH_DECODE_B, LAUNCH_DECODE_STEPS = 1, 8
 LAUNCH_DRYRUN_ARCH = "qwen1.5-4b"
+EXAMPLES_TRAIN_STEPS = 200    # examples/train_lm_torch.py's default
 
 
 def gpu_line() -> str:
@@ -2000,6 +2024,201 @@ def phase_launch(serving, full_remat):
     return launches
 
 
+# --------------------------------------------------------------------------
+# Phase 11: the example and tool scripts (``examples/*_torch.py``,
+# ``tools/*_torch.py``), each ``main`` run in this process at its own
+# sizes.
+
+def _script(relpath: str):
+    """Import the script at ``ROOT/relpath`` as a module of its own."""
+    import importlib.util
+    name = "script_" + pathlib.Path(relpath).stem
+    spec = importlib.util.spec_from_file_location(name, ROOT / relpath)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_script(mod, argv, launches: dict = None, tag: str = ""):
+    """``mod.main(argv)`` with its stdout captured; returns its value,
+    the stdout and the seconds.  The kernel's launch counts are set to 0
+    just before and, where ``launches`` is given, stored there under
+    ``tag`` just after."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.kernels.cim_mvm import kernel
+    buf = io.StringIO()
+    kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ret = mod.main(list(argv))
+    if DEV != "cpu":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if launches is not None:
+        launches[tag] = dict(kernel.LAUNCHES)
+    return ret, buf.getvalue(), seconds
+
+
+def _examples_cim(launches: dict, took: dict):
+    """(a) quickstart, (b) the fleet, (c) the ViT compile, (d) the DSE
+    demo, (g) explain, (h) the goldens."""
+    import tempfile
+    from repro_torch.kernels.cim_mvm import cim_mvm_params
+    qs = _script("examples/quickstart_torch.py")
+    _, out, took["a"] = _run_script(qs, ["--device", DEV], launches, "a")
+    assert "matches reference: True" in out, out[-300:]
+    assert sum(launches["a"].values()) > 0, launches["a"]
+    # the same walk-through on the CPU's plain version prints the same
+    # lines: the script prints no wall-clock time, so nothing is masked
+    _, cpu_out, cpu_s = _run_script(qs, ["--device", "cpu"])
+    assert cpu_out == out, "quickstart: card and CPU runs print differently"
+    print(f"[examples] (a) quickstart_torch: {out.splitlines()[-1].strip()}"
+          f" in {took['a']:.3f} s; kernel launches {launches['a']}; stdout "
+          f"equal to --device cpu's ({len(out.splitlines())} lines, "
+          f"{cpu_s:.3f} s)")
+
+    fleet = _script("examples/serve_cim_fleet_torch.py")
+    served = {}
+
+    class TimedFleet(fleet.CimFleet):
+        def serve(self, *a, **kw):
+            if DEV != "cpu":
+                import torch
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super().serve(*a, **kw)
+            served["s"], served["n"] = time.perf_counter() - t0, len(out)
+            return out
+    fleet.CimFleet = TimedFleet
+    done, out, took["b"] = _run_script(fleet, ["--device", DEV], launches,
+                                       "b")
+    assert out.count("fleet outputs bit-exact") == 2, out[-500:]
+    assert len(done) == served["n"] == 12, served
+    exact = cim_mvm_params(fleet.get_arch("isaac-baseline")).exact
+    assert exact or launches["b"]["cim_mvm_tiles"] > 0, launches["b"]
+    print(f"[examples] (b) serve_cim_fleet_torch: 12 requests served in "
+          f"{served['s']:.4f} s ({served['n'] / served['s']:.2f} requests/s),"
+          f" bit-exact vs standalone CimBatchService in-script; whole script"
+          f" {took['b']:.3f} s; kernel launches {launches['b']} (ADC exact "
+          f"on isaac-baseline: {exact}, so each node is one exact GEMM)")
+
+    _, out, took["c"] = _run_script(
+        _script("examples/compile_vit_cim_torch.py"), [], launches, "c")
+    assert out.count("speedup=") == 3, out
+    print(f"[examples] (c) compile_vit_cim_torch: 3 presets in "
+          f"{took['c']:.3f} s")
+    for line in out.splitlines()[2:]:
+        print(f"[examples] (c)   {line}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, out, took["d"] = _run_script(
+            _script("examples/explore_design_space_torch.py"),
+            ["--fresh", "--cache-dir", tmp], launches, "d")
+    assert rc == 0 and "halving returns the same best point: OK" in out
+    print(f"[examples] (d) explore_design_space_torch (defaults, fresh "
+          f"cache): {took['d']:.3f} s, {len(out.splitlines())} lines")
+    for line in out.splitlines():
+        if "finished in" in line or "full compiles in" in line:
+            print(f"[examples] (d)   {line.strip()}")
+
+    rc, out, took["g"] = _run_script(
+        _script("tools/explain_torch.py"),
+        ["--workload", "resnet18", "--arch", "jia-issc21", "--format",
+         "json"], launches, "g")
+    report = json.loads(out)
+    assert rc == 0 and len(report["rows"]) == report["meta"]["nodes"]
+    print(f"[examples] (g) explain_torch resnet18 on jia-issc21: JSON of "
+          f"{len(report['rows'])} rows, compile "
+          f"{report['meta']['compile_wall_s']} s; {took['g']:.3f} s")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, out, took["h"] = _run_script(
+            _script("tools/make_golden_cim_mvm_torch.py"),
+            ["--device", DEV, "--check", "--out", tmp], launches, "h")
+    assert rc == 0 and "check: 6/6 fixtures bit-equal" in out, out
+    assert all(n > 0 for n in launches["h"].values()), launches["h"]
+    print(f"[examples] (h) make_golden_cim_mvm_torch --check: 6/6 fixtures "
+          f"bit-equal to tests/golden through the kernel; kernel launches "
+          f"{launches['h']}; {took['h']:.3f} s")
+
+
+def _examples_lm(launches: dict, took: dict):
+    """(e) the LM server example, (f) the training example and its
+    resume."""
+    import statistics
+    import tempfile
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    (done, dt), out, took["e"] = _run_script(
+        _script("examples/serve_lm_torch.py"), ["--device", DEV], launches,
+        "e")
+    tokens = sum(len(r.output) for r in done)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert len(done) == 10 and tokens == 120, (len(done), tokens)
+    print(f"[examples] (e) serve_lm_torch: {len(done)} requests, {tokens} "
+          f"tokens in {dt:.4f} s ({tokens / dt:.2f} tokens/s), peak "
+          f"{peak - held:.4f} GiB above the {held:.4f} GiB allocated "
+          f"before; whole script {took['e']:.3f} s")
+    torch.cuda.empty_cache()
+
+    train = _script("examples/train_lm_torch.py")
+    with tempfile.TemporaryDirectory() as wd:
+        argv = ["--device", DEV, "--workdir", wd]
+        res, out, took["f"] = _run_script(
+            train, argv + ["--steps", str(EXAMPLES_TRAIN_STEPS)], launches,
+            "f")
+        recs = [r for r in _records(wd) if "loss" in r]
+        losses = [r["loss"] for r in recs]
+        assert res["steps"] == EXAMPLES_TRAIN_STEPS and \
+            res["nan_steps"] == 0, res
+        assert all(math.isfinite(x) for x in losses), losses
+        assert losses[-1] < losses[0], losses
+        more = EXAMPLES_TRAIN_STEPS + 20
+        res2, out2, took["f2"] = _run_script(
+            train, argv + ["--steps", str(more)], launches, "f2")
+        assert f"at step {EXAMPLES_TRAIN_STEPS}" in out2, out2
+        assert res2["steps"] == more, res2
+        recs2 = [r for r in _records(wd) if "loss" in r]
+    cfg = train.build_config("qwen1.5-4b")
+    print(f"[examples] (f) train_lm_torch ({cfg.name}, "
+          f"{cfg.param_count() / 1e6:.1f} M parameters, B=8, S=256): "
+          f"{res['steps']} steps in {res['wall_s']:.3f} s "
+          f"({res['steps'] / res['wall_s']:.3f} steps/s; median logged "
+          f"step {statistics.median(r['step_s'] for r in recs):.4f} s, "
+          f"checkpoints every 50 included in the total); logged loss "
+          f"{losses[0]:.6f} at step {recs[0]['step']} -> {losses[-1]:.6f} at "
+          f"step {recs[-1]['step']}; whole script {took['f']:.3f} s")
+    print(f"[examples] (f) rerun with --steps {more}: resumed at step "
+          f"{EXAMPLES_TRAIN_STEPS}, {res2['steps'] - EXAMPLES_TRAIN_STEPS} "
+          f"steps in {res2['wall_s']:.3f} s, loss {recs2[-1]['loss']:.6f} at "
+          f"step {recs2[-1]['step']}; whole script {took['f2']:.3f} s")
+
+
+def phase_examples():
+    """Phase 11; returns the kernel launches of the scripts' runs on the
+    card, summed (the CPU comparison run of (a) is not among them)."""
+    import torch
+    t_phase = time.perf_counter()
+    print(f"[examples] card: {gpu_line()}")
+    launches, took = {}, {}
+    _examples_cim(launches, took)
+    torch.cuda.empty_cache()
+    _examples_lm(launches, took)
+    torch.cuda.empty_cache()
+    for tag in ("c", "d", "e", "f", "f2", "g"):
+        assert sum(launches[tag].values()) == 0, (tag, launches[tag])
+    total = {k: sum(n[k] for n in launches.values())
+             for k in launches["a"]}
+    print("[examples] seconds: " + ", ".join(f"({k}) {v:.1f}"
+                                             for k, v in took.items()))
+    print(f"[examples] kernel launches {total}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2031,6 +2250,8 @@ def main() -> int:
     by_path["train"], full_remat = phase_train()
     torch.cuda.empty_cache()
     by_path["launch"] = phase_launch(serving, full_remat)
+    torch.cuda.empty_cache()
+    by_path["examples"] = phase_examples()
     for name, row in rows.items():
         row["launches_by_path"] = {p: n[name] for p, n in by_path.items()}
     rows["cim_mvm_tiles"]["puma_faulted_forward"] = puma_forward

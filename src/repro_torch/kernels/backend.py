@@ -9,7 +9,8 @@ Every CIM kernel entry point has two execution routes:
                    any device, and is the semantic ground truth.
 
 Callers ask the registry for a :class:`KernelRoute` (``resolve``); the
-registry decides from the device the tensors live on.  Auto resolution
+registry decides from the device the tensors live on.  ``supports`` and
+``capability_matrix`` say what can run where without resolving a call.  Auto resolution
 takes ``compiled`` on a Hopper CUDA device and ``torch`` on the CPU; it
 never takes ``torch`` on a CUDA device, so a CUDA tensor either reaches
 the kernel or raises.  Overrides exist at three levels, highest first:
@@ -165,6 +166,17 @@ def _requested_mode(kernel: str, mode: Optional[str]) -> str:
 
 # -- resolution --------------------------------------------------------------
 
+def _platform(device, platform: Optional[str]) -> str:
+    """The named ``platform``, else that of ``device`` (default the card)."""
+    return platform or detect_platform(resolve_device(device))
+
+
+def supports(kernel: str, mode: str, platform: Optional[str] = None) -> bool:
+    """True if ``kernel`` can execute via ``mode`` on ``platform``
+    (default: the card's)."""
+    return mode in REGISTRY[kernel].modes_on(_platform(None, platform))
+
+
 def resolve(kernel: str, mode: Optional[str] = None, *, device=None,
             platform: Optional[str] = None) -> KernelRoute:
     """Decide how ``kernel`` runs for tensors on ``device`` (or on the
@@ -181,8 +193,7 @@ def resolve(kernel: str, mode: Optional[str] = None, *, device=None,
         raise KeyError(f"unknown kernel {kernel!r}; "
                        f"registered: {sorted(REGISTRY)}")
     want = _requested_mode(kernel, mode)
-    if platform is None:
-        platform = detect_platform(resolve_device(device))
+    platform = _platform(device, platform)
     avail = REGISTRY[kernel].modes_on(platform)
     if want == AUTO:
         if "compiled" in avail:
@@ -199,3 +210,21 @@ def resolve(kernel: str, mode: Optional[str] = None, *, device=None,
             f"{kernel}: mode {want!r} is not supported on {platform!r} "
             f"(available: {avail})")
     return KernelRoute(kernel, platform, want, "explicitly requested")
+
+
+def capability_matrix(platform: Optional[str] = None) -> Dict[str, Dict]:
+    """Docs view: per kernel, the modes each platform supports and the
+    route auto-resolution picks on ``platform`` (default: the card's;
+    ``None`` where auto resolution refuses, as on a non-Hopper card)."""
+    platform = _platform(None, platform)
+    out: Dict[str, Dict] = {}
+    for name, cap in REGISTRY.items():
+        try:
+            auto = resolve(name, mode=AUTO, platform=platform).mode
+        except KernelUnsupportedError:
+            auto = None
+        out[name] = {
+            "platforms": {p: cap.modes_on(p) for p in ("cpu", HOPPER)},
+            "auto_mode": auto,
+        }
+    return out

@@ -1,8 +1,11 @@
 """The port stands alone: no JAX, no ``repro``, no silent CPU.
 
 An AST scan finds no import of ``jax`` or ``repro`` in the port's
-package or in ``chip_smoke.py``; the package imports in a process where
-both are blocked; entry points asked for the default device (the LM
+package, in ``chip_smoke.py`` or in the port's example and tool scripts
+(``examples/*_torch.py``, ``tools/*_torch.py``); the package imports in
+a process where both are blocked, and so does every script, which gets
+through ``--help`` there (the host-only ones through ``main`` too, and
+the others refuse to run without a card); entry points asked for the default device (the LM
 model's, server's, trainer's and training CLI's too) raise when there
 is no CUDA card (the host mesh's too); and the
 port's compile store is its own and refuses the JAX package's entries.
@@ -16,8 +19,11 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+#: the port's counterparts of the JAX package's scripts outside ``src``
+SCRIPTS = sorted((ROOT / "examples").glob("*_torch.py")) \
+    + sorted((ROOT / "tools").glob("*_torch.py"))
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py"] + SCRIPTS
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -34,6 +40,12 @@ def _imported_roots(path: pathlib.Path):
 def test_port_files_exist():
     assert (ROOT / "chip_smoke.py").exists()
     assert len(PORT_FILES) > 20
+    assert sorted(p.name for p in SCRIPTS) == sorted(
+        p.name.replace(".py", "_torch.py") for p in
+        list((ROOT / "examples").glob("*.py"))
+        + [ROOT / "tools" / "explain.py",
+           ROOT / "tools" / "make_golden_cim_mvm.py"]
+        if not p.name.endswith("_torch.py"))
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -230,3 +242,58 @@ def test_compile_store_is_the_ports_own(tmp_path, monkeypatch):
     assert tdse.CompileCache(tmp_path / "own").get(key).key == first.key
     own._pkl(key).write_bytes(b"\x80\x05truncated")
     assert tdse.CompileCache(tmp_path / "own").get(key) is None
+
+
+#: arguments that run a host-only script's ``main`` in a few seconds
+HOST_RUNS = {
+    "explain_torch.py": ["--workload", "tiny_cnn", "--format", "json"],
+    "compile_vit_cim_torch.py": [],
+    "explore_design_space_torch.py": ["--workloads", "tiny_cnn",
+                                      "--compare-workload", "tiny_cnn"],
+}
+
+
+@pytest.mark.parametrize("path", SCRIPTS, ids=lambda p: p.name)
+def test_script_runs_with_jax_and_repro_blocked(path, tmp_path):
+    """``--help`` in a process where ``jax`` and ``repro`` cannot be
+    imported; a host-only script's ``main`` too, and a script that
+    computes on a device must refuse when it sees no card and is not
+    asked for the CPU."""
+    run = HOST_RUNS.get(path.name)
+    argv = run + ["--cache-dir", str(tmp_path)] \
+        if path.name.startswith("explore") else run
+    code = (
+        "import runpy, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import torch\n"
+        "torch.cuda.is_available = lambda: False\n"
+        f"sys.argv = [{str(path)!r}, '--help']\n"
+        "try:\n"
+        f"    runpy.run_path({str(path)!r}, run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code in (0, None), e.code\n"
+        f"mod = runpy.run_path({str(path)!r})\n"
+        f"argv = {argv!r}\n"
+        "if argv is None:\n"
+        "    try:\n"
+        "        mod['main']([])\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'no CUDA device' in str(e), e\n"
+        "        print('refused without a card')\n"
+        "else:\n"
+        "    assert mod['main'](argv) in (0, None)\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'repro')\n"
+        "             and sys.modules[m] is not None))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], check=True,
+                         capture_output=True, text=True, cwd=tmp_path,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    lines = out.stdout.strip().splitlines()
+    assert lines[0].startswith("usage:")
+    assert lines[-1] == "[]"
+    if run is None:
+        assert lines[-2] == "refused without a card"

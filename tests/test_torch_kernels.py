@@ -217,6 +217,43 @@ def test_jax_route_variable_is_ignored(monkeypatch):
                                platform="cuda").mode == "compiled"
 
 
+@pytest.mark.parametrize("platform", ["cpu", "cuda", "sm_80"])
+def test_supports_and_capability_matrix_follow_the_registry(platform,
+                                                           monkeypatch):
+    """``supports`` says what ``REGISTRY`` says, a forced mode resolves
+    exactly where it is supported, and the matrix's ``auto_mode`` is
+    the route ``resolve`` picks (``None`` where it refuses)."""
+    monkeypatch.delenv("REPRO_TORCH_KERNEL_MODE", raising=False)
+    matrix = backend.capability_matrix(platform)
+    assert sorted(matrix) == sorted(backend.REGISTRY)
+    for name, cap in backend.REGISTRY.items():
+        for mode in backend.MODES:
+            ok = backend.supports(name, mode, platform)
+            assert ok == (mode in cap.modes_on(platform))
+            if ok:
+                assert backend.resolve(name, mode,
+                                       platform=platform).mode == mode
+            else:
+                with pytest.raises(backend.KernelUnsupportedError):
+                    backend.resolve(name, mode, platform=platform)
+        assert matrix[name]["platforms"] == {
+            "cpu": cap.modes_on("cpu"), "cuda": cap.modes_on("cuda")}
+        try:
+            auto = backend.resolve(name, platform=platform).mode
+        except backend.KernelUnsupportedError:
+            auto = None
+        assert matrix[name]["auto_mode"] == auto == \
+            {"cpu": "torch", "cuda": "compiled", "sm_80": None}[platform]
+
+
+def test_supports_and_capability_matrix_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        backend.supports("cim_mvm", "torch")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        backend.capability_matrix()
+
+
 def test_operand_dtype():
     assert kernel.operand_dtype(CimMvmParams(8, 8, 1, 1, 1152, 8)) \
         == torch.uint8
