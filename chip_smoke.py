@@ -12,15 +12,22 @@ Drives ``repro_torch`` only — it imports neither JAX nor ``repro``:
    ``cim_mvm_signed`` on the CUDA kernel must equal the plain PyTorch
    version on the same CUDA tensors bit for bit: the six committed
    goldens (``tests/golden/cim_mvm``), a seeded sweep (rows not a
-   multiple of ``parallel_row``, groups not a multiple of the mma's 32
-   rows, M < 16 and C % 8 != 0, saturating ADCs down to 1 bit, 8-bit
-   planes, int32 operands, split and unsplit launch plans) and the main
-   path's own shapes; every ``cim_mvm_tiles`` case runs twice and must
-   give identical bits (the kernel's atomics are order-independent).
-   Times the kernels, the plain version and a cuBLAS int8 yardstick
-   (``torch._int_mm`` over the same plane work without the clamp) with
-   CUDA events at the main path's shapes, and each dispatch shape
-   alone.
+   multiple of ``parallel_row``, groups not a multiple of the wgmma's 32
+   rows and a short last group, M < 64 and C below the 64-column tile,
+   saturating ADCs down to 1 bit, DAC and cell widths of 1, 2, 4 and 8
+   bits, 6 phases, int32 operands, split and unsplit launch plans, row
+   groups resident in the ring and streamed through it) and the main
+   path's own shapes, with each case's load paths printed (x and w by
+   TMA or by 4-byte ``cp.async``); operands whose base addresses sit off
+   the 16-byte grid take ``cp.async``; every ``cim_mvm_tiles`` case runs
+   twice and must give identical bits (the kernel's atomics are
+   order-independent), and all four x / w path pairs and a streamed
+   group must have been launched.  Prints the host cost of encoding one
+   TMA tensor map.  Times the kernels, the plain version and a cuBLAS
+   int8 yardstick (``torch._int_mm`` over the same plane work without the
+   clamp) with CUDA events at the main path's shapes, and each dispatch
+   shape alone; phases 5 and 8 time the faulted puma forward and the LM
+   block's launches the same way.
 3. **Main path.**  ``CimBatchService(resnet18(), get_arch("jia-issc21"),
    max_batch=4, device="cuda")`` — ResNet-18 at 224x224, 1000 classes,
    random weights from seed 0 — serves 8 requests.  Launch counts are
@@ -327,7 +334,25 @@ def _sweep():
         (1, 4500, 600, 128, jia),                    # unsplit plan
         (1, 33, 333, 48, P(8, 8, 8, 2, 128, 1)),     # PUMA, adc_max 1
         (2, 60, 200, 40, P(8, 8, 1, 1, 32, 6)),      # jain-jssc21, 63
+        # the wgmma kernel's load paths (x / w: TMA where base and row
+        # pitch are multiples of 16 bytes, else 4-byte cp.async), ring
+        # modes and live-pair counts
+        (2, 70, 256, 40, jia),                       # x TMA, w cp.async
+        (1, 100, 384, 96, P(8, 8, 2, 2, 128, 5)),    # both TMA, P = S = 4
+        (2, 40, 250, 48, P(8, 8, 4, 4, 100, 9)),     # cp / TMA, short group
+        (1, 64, 224, 64, P(8, 8, 1, 2, 96, 6)),      # TMA, pr % 32 != 0
+        (1, 70, 300, 50, P(6, 8, 1, 1, 256, 7)),     # 6 phases: 3 live
+        (1, 64, 2048, 64, P(8, 8, 1, 1, 2048, 8)),   # streamed, TMA
+        (1, 40, 2050, 40, P(8, 8, 1, 1, 2048, 9)),   # streamed, cp.async
+        (6, 2816, 3456, 64, jia),                    # 3 groups a block
+        (4, 4224, 2300, 64, jia),                    # 2, cp.async, short
     ]
+
+
+#: (T, M, R, C, byte offset of x, of w): uint8 operands at base addresses
+#: off the 16-byte grid, which the rule sends to cp.async
+OFFSET_CASES = [(1, 130, 512, 128, 1, 2), (2, 33, 256, 64, 4, 0),
+                (1, 64, 128, 64, 0, 8)]
 
 
 def _operands(rng, t, m, r, c, p, dev):
@@ -342,6 +367,50 @@ def _plain_kwargs(params) -> dict:
     return dict(act_bits=params.act_bits, weight_bits=params.weight_bits,
                 dac_bits=params.dac_bits, cell_bits=params.cell_bits,
                 parallel_row=params.parallel_row, adc_bits=params.adc_bits)
+
+
+def _pid(p) -> str:
+    return "P" + "/".join(str(v) for v in (p.act_bits, p.weight_bits,
+                                          p.dac_bits, p.cell_bits,
+                                          p.parallel_row, p.adc_bits))
+
+
+def _plan_key(plan) -> str:
+    """x / w load paths and ring mode of a wgmma launch plan."""
+    if plan.route != "wgmma":
+        return plan.route
+    return (f"{plan.x_path}/{plan.w_path} "
+            f"{'resident' if plan.resident else 'streamed'}")
+
+
+def _plan_text(plan) -> str:
+    if plan.route != "wgmma":
+        return f"{plan.route}, grid {plan.grid}"
+    return (f"{_plan_key(plan)} ({plan.stages} stages), "
+            f"{plan.phases_per_block} of {plan.n_p} phases and "
+            f"{plan.groups_per_block} of {plan.n_groups} groups a block, "
+            f"grid {plan.grid}")
+
+
+def _shifted(a, offset: int):
+    """A contiguous copy of ``a`` whose data starts ``offset`` bytes past a
+    256-byte-aligned allocation."""
+    import torch
+    buf = torch.empty(a.numel() + 256, dtype=a.dtype, device=a.device)
+    out = buf[offset:offset + a.numel()].view(a.shape)
+    out.copy_(a)
+    assert out.is_contiguous() and out.data_ptr() % 16 == offset % 16
+    return out
+
+
+def forward_row(shapes, params) -> dict:
+    """Kernel, plain and plane-GEMM milliseconds of one forward's
+    ``cim_mvm_tiles`` launches at ``shapes``, with their bound."""
+    ms, plain_ms, bms, bound_by = time_forward(shapes, params)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": bound_by,
+            "plane_gemm_ms": timed_ms(plane_gemm(shapes, params, DEV)),
+            "shapes": len(shapes)}
 
 
 def time_forward(shapes, params, tiles: bool = True):
@@ -377,21 +446,24 @@ def time_forward(shapes, params, tiles: bool = True):
 
 def plane_gemm(shapes, params, dev):
     """A cuBLAS int8 yardstick: for each (T, M, R, C) launch, T products
-    ``torch._int_mm`` of (P*M, R) 0/1 planes by (R, S*C) 0/1 planes, padded
-    to its shape rules.  The same multiply-adds as the kernel's plane
-    work, without the per-group clamp: no PyTorch call computes the
-    saturating MVM, and the port never calls this one."""
+    ``torch._int_mm`` of (P*M, R) 0/1 planes by (R, S*C) 0/1 planes, each
+    size padded to a multiple of 32.  The same multiply-adds as the
+    kernel's plane work, without the per-group clamp: no PyTorch call
+    computes the saturating MVM, and the port never calls this one."""
     import torch
     n_p = math.ceil(params.act_bits / params.dac_bits)
     n_s = math.ceil(params.weight_bits / params.cell_bits)
-    def up8(v):
-        return -(-v // 8) * 8
+
+    def up32(v):
+        return -(-v // 32) * 32
 
     ops = []
     for t, m, r, c in shapes:
-        a = torch.randint(0, 2, (max(up8(n_p * m), 24), up8(r)),
-                          dtype=torch.int8, device=dev)
-        b = torch.randint(0, 2, (up8(r), up8(n_s * c)), dtype=torch.int8,
+        # cuBLASLt refuses some int8 products whose sizes are multiples of
+        # 8 only (puma's 196 x 26 x 32 slices among them): pad to 32
+        a = torch.randint(0, 2, (up32(n_p * m), up32(r)), dtype=torch.int8,
+                          device=dev)
+        b = torch.randint(0, 2, (up32(r), up32(n_s * c)), dtype=torch.int8,
                           device=dev)
         ops += [(a, b)] * t
 
@@ -426,10 +498,10 @@ def phase_kernels(tiles_shapes, mvm_shapes, params):
           f"{tally['cim_mvm_tiles'].cases} checks bit-exact")
 
     rng = np.random.default_rng(20260417)
-    cases = _sweep() + [(t, m, r, c, params)
-                        for t, m, r, c in tiles_shapes]
-    splits = {}
-    for t, m, r, c, p in cases:
+    sweep = _sweep()
+    cases = sweep + [(t, m, r, c, params) for t, m, r, c in tiles_shapes]
+    splits, paths, most_groups = {}, {}, 0
+    for n, (t, m, r, c, p) in enumerate(cases):
         x, w = _operands(rng, t, m, r, c, p, DEV)
         got = cim_mvm_tiles(x, w, p, mode="compiled")
         tally["cim_mvm_tiles"].check(
@@ -441,6 +513,11 @@ def phase_kernels(tiles_shapes, mvm_shapes, params):
         plan = kernel.plan_launch(p, t, m, r, c)
         splits[(t, m, r, c, p)] = (plan.group_splits * plan.phase_splits,
                                    plan.blocks)
+        paths[_plan_key(plan)] = paths.get(_plan_key(plan), 0) + 1
+        most_groups = max(most_groups, plan.groups_per_block)
+        if n < len(sweep):
+            print(f"[kernels] case {(t, m, r, c)} {_pid(p)}: "
+                  f"{_plan_text(plan)}")
         tally["cim_mvm"].check(cim_mvm(x[0], w[0], p, mode="compiled"),
                                cim_mvm(x[0], w[0], p, mode="torch"),
                                f"mvm {(m, r, c)} {p}")
@@ -449,15 +526,44 @@ def phase_kernels(tiles_shapes, mvm_shapes, params):
         tally["cim_mvm"].check(cim_mvm_signed(xs, ws, p, mode="compiled"),
                                cim_mvm_signed(xs, ws, p, mode="torch"),
                                f"signed {(m, r, c)} {p}")
+    jia = CimMvmParams(8, 8, 1, 1, 1152, 8)
+    for t, m, r, c, xo, wo in OFFSET_CASES:
+        x, w = (a.to(torch.uint8) for a in _operands(rng, t, m, r, c, jia,
+                                                     DEV))
+        x, w = _shifted(x, xo), _shifted(w, wo)
+        plan = kernel.plan_launch(jia, t, m, r, c, x.data_ptr() % 16 == 0,
+                                  w.data_ptr() % 16 == 0)
+        got = kernel.cim_mvm_tiles_cuda(x, w, jia)
+        tally["cim_mvm_tiles"].check(
+            got, ref.cim_mvm_ref_tiles(x, w, **_plain_kwargs(jia)),
+            f"offset tiles {(t, m, r, c, xo, wo)}")
+        tally["cim_mvm_tiles"].check(kernel.cim_mvm_tiles_cuda(x, w, jia),
+                                     got, f"offset rerun {(t, m, r, c)}")
+        paths[_plan_key(plan)] = paths.get(_plan_key(plan), 0) + 1
+        print(f"[kernels] case {(t, m, r, c)} x at +{xo}, w at +{wo} bytes: "
+              f"{_plan_text(plan)}")
     for m, r, c in mvm_shapes:
         x, w = _operands(rng, 1, m, r, c, params, DEV)
         tally["cim_mvm"].check(cim_mvm(x[0], w[0], params, mode="compiled"),
                                cim_mvm(x[0], w[0], params, mode="torch"),
                                f"calibration mvm {(m, r, c)}")
     torch.cuda.synchronize()
-    print(f"[kernels] sweep: {len(cases)} tile cases (each run twice, "
-          f"identical), {len(mvm_shapes)} calibration shapes, all "
-          "bit-exact")
+    print(f"[kernels] sweep: {len(cases) + len(OFFSET_CASES)} tile cases "
+          f"(each run twice, identical), {len(mvm_shapes)} calibration "
+          "shapes, all bit-exact")
+    print("[kernels] wgmma launches by x / w load path and ring mode: "
+          + ", ".join(f"{k} {v}" for k, v in sorted(paths.items())))
+    for xp in ("tma", "cp.async"):
+        for wp in ("tma", "cp.async"):
+            assert any(k.startswith(f"{xp}/{wp} ") for k in paths), \
+                (xp, wp, paths)
+    assert any(k.endswith("streamed") for k in paths), paths
+    assert most_groups > 1, "no plan put several row groups in one block"
+    xm = torch.zeros((1, 196, 4608), dtype=torch.uint8, device=DEV)
+    encode_us = kernel.tensor_map_encode_us(xm)
+    print(f"[kernels] host cost of one tensor map: {encode_us:.3f} us "
+          "(cuTensorMapEncodeTiled; a launch on the TMA path encodes one "
+          "or two)")
     most = max(splits, key=lambda k: splits[k][0])
     print(f"[kernels] launch plans: most atomic adds per output element "
           f"{splits[most][0]} at {most[:4]} ({splits[most][1]} blocks); "
@@ -488,6 +594,7 @@ def phase_kernels(tiles_shapes, mvm_shapes, params):
             "bound_by": bound_by, "library_ms": None,
             "plane_gemm_ms": gemm_ms,
             "shapes": len(shapes),
+            "tensor_map_encode_us": encode_us,
         }
         print(f"[kernels] {name}: {ms:.3f} ms kernel, {plain_ms:.3f} ms "
               f"plain, {gemm_ms:.3f} ms int8 plane GEMM, {bms:.4f} ms bound "
@@ -873,11 +980,13 @@ def phase_faults():
           "kernel vs plain")
     # the faulted forward's launches timed alone with CUDA events (not
     # counted: the phase's launches were read above)
-    ms, plain_ms, bms, bound_by = time_forward(
-        exes[("compiled", "faulted")].dispatch_shapes(BATCH), params)
+    fwd = forward_row(exes[("compiled", "faulted")].dispatch_shapes(BATCH),
+                      params)
     print(f"[faults] cim_mvm_tiles on {arch.name}, {stats.dispatches} "
-          f"launches a forward: {ms:.3f} ms kernel, {plain_ms:.3f} ms "
-          f"plain, {bms:.4f} ms bound ({bound_by})")
+          f"launches a forward: {fwd['ms']:.3f} ms kernel, "
+          f"{fwd['plain_ms']:.3f} ms plain, {fwd['plane_gemm_ms']:.3f} ms "
+          f"int8 plane GEMM, {fwd['bound_ms']:.4f} ms bound "
+          f"({fwd['bound_by']})")
     print(f"[faults] host seconds: materialising fault fields "
           f"{materialise_s:.3f}, fault-aware compile {compile_s:.3f}, "
           f"faulted dispatch {min(times['faulted']):.4f} (clean "
@@ -885,8 +994,7 @@ def phase_faults():
           f"{time.perf_counter() - t_phase:.1f} s")
     assert launches["cim_mvm_tiles"] >= 2 * stats.dispatches, launches
     assert launches["cim_mvm"] > 0, launches
-    return launches, {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                      "bound_by": bound_by, "shapes": stats.dispatches}
+    return launches, fwd
 
 
 def phase_fleet(graph):
@@ -1449,8 +1557,7 @@ def _lm_block():
         np.testing.assert_array_equal(outs["compiled"][t], outs["torch"][t],
                                       err_msg=t)
     n_cal = check_calibration(graph, weights, inputs[0], params, shifts)
-    ms, plain_ms, bms, bound_by = time_forward(
-        exes["compiled"].dispatch_shapes(VERIFY_BATCH), params)
+    fwd = forward_row(exes["compiled"].dispatch_shapes(VERIFY_BATCH), params)
     print(f"[lm] (d) {graph.name} (seq {graph.shapes['x'][0]}) on "
           f"{jia.name}: {stats}; compile_and_verify on the kernel "
           f"{verify_s['compiled']:.3f} s (compile {rep.compile_s:.3f}, "
@@ -1461,14 +1568,13 @@ def _lm_block():
     print(f"[lm] (d) batch-{VERIFY_BATCH} dispatch {run_s['compiled']:.4f} s "
           f"on the kernel, {run_s['torch']:.4f} s plain, outputs bit-equal; "
           f"calibration {n_cal} tensors bit-equal kernel vs plain; "
-          f"cim_mvm_tiles {ms:.3f} ms kernel, {plain_ms:.3f} ms plain, "
-          f"{bms:.4f} ms bound ({bound_by}) over {stats.dispatches} "
-          f"launches; launches {launches}")
+          f"cim_mvm_tiles {fwd['ms']:.3f} ms kernel, {fwd['plain_ms']:.3f} "
+          f"ms plain, {fwd['plane_gemm_ms']:.3f} ms int8 plane GEMM, "
+          f"{fwd['bound_ms']:.4f} ms bound ({fwd['bound_by']}) over "
+          f"{stats.dispatches} launches; launches {launches}")
     assert launches["cim_mvm_tiles"] >= 2 * stats.dispatches, launches
     assert launches["cim_mvm"] > 0, launches
-    return launches, {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                      "bound_by": bound_by, "shapes": stats.dispatches,
-                      "verify_max_abs_err": rep.max_abs_err}
+    return launches, dict(fwd, verify_max_abs_err=rep.max_abs_err)
 
 
 def phase_lm():

@@ -18,50 +18,98 @@
 // against 1979 TOPS of int8 tensor-core rate.  For the executor's
 // shapes (R in the hundreds to thousands, P = S = 8 on jia-issc21) the
 // operations bound by far: the data is tiny next to the P*S-fold plane
-// work.
+// work.  Small crossbars (puma: P = 1, S = 4, C = 32) are bound by bytes.
 //
-// Two instantiations, chosen by the operand type (elem_bytes):
+// Two bodies, chosen by the operand type (elem_bytes):
 //
 // uint8 operands (every plane in the low byte; all five arch presets):
-// the tensor-core kernel, mma_kernel.
+// wgmma_kernel, a warp-specialised kernel built on wgmma, TMA and mbarriers.
 //   * Split.  Each (group g, phase p, slice s) term is clamped on its
 //     own and then only added, so the work splits across blocks by
-//     output tile (BM x BN of one crossbar tile t), by a range of row
+//     output tile (64 x 64 of one crossbar tile t), by a range of row
 //     groups and by a range of phases; a block keeps all S slices of its
 //     phases.  The host's launch planner (kernel.py::plan_launch) picks
-//     the ranges so that small outputs still fill the 132 SMs, and keeps
-//     one range of each where the tiles alone fill the card.  Each block
-//     adds its total into `out` (zeroed by the wrapper) with 32-bit
-//     atomics: integer addition mod 2^32 in any order gives the same
-//     bits, so results are identical run to run.
-//   * Tensor cores.  The plane products run as
-//     mma.sync.m16n8k32.row.col.s32.u8.u8.s32.  Each group's rows are
-//     zero-padded to whole 32-row k-steps (zero rows leave the group's
-//     analog sum unchanged, the plain version's own padding argument),
-//     so a k-step never straddles two ADC reads.  One s32 fragment per
-//     slice accumulates over the group's k-steps; at the group's end it
-//     is clamped at adc_max, shifted by p*db + s*cb and added into a
-//     uint32 running total.
-//   * Extraction.  Raw operand bytes are staged, never planes: a 32-bit
-//     word holds 4 consecutive k of one row (x) or one column (w), and
-//     (word >> p*db) & ((2^db - 1) * 0x01010101) is the packed u8 plane
-//     of those 4 k in one shift and one AND.  No bit of a neighbouring
-//     byte reaches the mask because p*db + db <= 8.  One raw fragment
-//     thus feeds every plane extracted from it.  The mma's B operand
-//     wants 4 consecutive k of one column per register, so w's bytes
-//     are gathered column-wise out of its row-major stage.
-//   * Staging.  k-chunks of KC raw bytes pass through a STAGES-deep
-//     shared-memory ring.  Where rows (x) or columns (w) are 16-byte
-//     aligned the ring is filled with cp.async (zero-fill past the
-//     group's end, M and C), overlapping the next chunks' copies with
-//     this chunk's mma; otherwise (R = 147, C = 488, ...) the chunk is
-//     loaded byte by byte.  Ragged M, C and R are masked here; the host
-//     pads nothing.
-//   * What bounds it now: the mma.sync throughput and the ALU work of
-//     the extraction beside it (about 2 ALU and 0.75 shared-memory
-//     instructions per mma), and atomics and restaging (each block
-//     restages its groups once per phase) on the small grids.  wgmma,
-//     TMA and warp specialisation are the next levers.
+//     the ranges that minimise the busiest SM's load in whole waves of one
+//     block per SM, preferring group splits (a phase split repeats the
+//     slice-plane pass below) and equal phase ranges.  Blocks add their
+//     totals into `out` (zeroed by the wrapper) with 32-bit atomics:
+//     integer addition mod 2^32 in any order gives the same bits, so
+//     results are identical run to run.
+//   * Operand roles.  The plane products run as
+//     wgmma.mma_async.m64n64k32.s32.u8.u8 with A (64 output rows x 32 k)
+//     in registers and B (32 k x 64 output columns) in shared memory.
+//     8-bit wgmma takes K-major operands only.  x (T,M,R) is K-major as
+//     stored, so its phase planes go from the staged raw bytes straight
+//     into A registers: a 32-bit word holds 4 consecutive k of one row,
+//     and (word >> p*db) & ((2^db - 1) * 0x01010101) is the packed plane
+//     in one shift and one AND.  w (T,R,C) is N-major, so its slice
+//     planes are the operand that takes a shared-memory pass: per staged
+//     chunk and sweep the consumers read 4 x 4 byte blocks of raw w,
+//     transpose them with byte permutes, extract the sweep's slices and
+//     store them K-major in the no-swizzle core-matrix layout (8 columns x
+//     16 k bytes a core; 8-column groups 1040 bytes apart, one 16-byte
+//     row of padding, so the stores meet each bank at most twice).  x
+//     takes the register side because its planes cost two ALU operations
+//     a register and no shared memory, and because the 64-row wgmma
+//     granule then falls on M while N takes C (32 on puma).  After the
+//     pass, fence.proxy.async makes the generic stores visible to wgmma
+//     and a named barrier over the 256 consumer threads orders them; three
+//     plane buffers let a pass run while earlier chunks' wgmmas drain.
+//   * Sweeps and registers.  The clamp is per (group, phase, slice), so a
+//     pair's s32 accumulator (32 registers a thread for m64n64) lives over
+//     its whole group.  A sweep runs the block's np phases against sb
+//     slices (sb = 2 when np <= 4, else 1): at most 8 pairs, LIVE =
+//     ceil(np * sb / 2) of them a warpgroup (a template argument; 128
+//     accumulator registers at LIVE = 4, and 32 for the uint32 totals).
+//     The two consumer warpgroups share the 64 rows and the slice planes
+//     and take alternate pairs, so each extracts only its own phases.
+//     setmaxnreg gives the consumers 232 registers and the producers 40.
+//     At a group's end each pair is clamped at adc_max, shifted by
+//     p*db + s*cb and added into the totals; warpgroup 1 hands its totals
+//     to warpgroup 0 through shared memory, so each output gets one atomic
+//     add a block.
+//   * The wgmma groups.  The wgmmas read their A registers asynchronously,
+//     and ptxas serialises every wgmma of a kernel where an instruction
+//     other than a wgmma defines one of their inputs while a group is in
+//     flight.  So a warpgroup computes two k-steps' A planes and
+//     descriptors, fences (the fence takes the descriptors as operands,
+//     so they are computed before it), starts their LIVE x 2 wgmmas as
+//     one group with scale-d an immediate, and retires the group before
+//     it defines the next one's inputs; the other warpgroup's group and
+//     the next chunk's plane pass fill the gap.
+//   * Ring and warp roles.  Warps 8-11 are the producer warpgroup: it
+//     keeps raw 128-row chunks of x (64 x 128 bytes) and w (128 x 64 bytes)
+//     in flight in a STAGES-deep ring (9-11 stages, whatever fits 227 KB
+//     beside the plane buffers), each slot with a full and an empty
+//     mbarrier.  Warps 0-7 are the two consumer warpgroups.  When a whole
+//     row group fits in the ring (parallel_row <= 128 * stages: every
+//     preset), a group's chunks are staged once and stay resident for all
+//     of its sweeps, and the empty barrier is signalled after the last
+//     sweep; otherwise each sweep streams the group again.
+//   * Load paths.  Where the global strides allow it (base and row pitch
+//     multiples of 16 bytes, and parallel_row too for x), a chunk is one
+//     TMA box (cp.async.bulk.tensor; tensor maps encoded on the host for
+//     each launch through cuTensorMapEncodeTiled, looked up with
+//     cudaGetDriverEntryPoint, and passed as __grid_constant__
+//     parameters); x lands 128-byte swizzled, so the A-fragment loads meet
+//     no bank twice; rows and columns out of range fill with zeros.
+//     Otherwise (R = 147, R = 854, C = 488, a base off the 16-byte grid)
+//     the producer warpgroup copies the aligned 4-byte words that cover
+//     each row with cp.async, and the full barrier tracks them
+//     (cp.async.mbarrier.arrive.noinc); a row keeps its offset within a
+//     word, which the consumers undo with a funnel shift.  Rows past a
+//     group's end are zero in the slice planes, so what x holds there
+//     adds nothing; nothing is padded on the host.
+//   * What bounds it now (tools/cim_mvm_ablation.py, an H100 80GB HBM3
+//     at 700 W): the CUDA-core work around the wgmmas, not the tensor
+//     cores.  ResNet-18@224's 32 launches take 2.40-2.43 ms (5.1-5.2x
+//     their bound by operations), 1.92-1.94 ms without the plane pass,
+//     2.16-2.25 ms without the A-plane extraction and still 1.52-1.58 ms
+//     with no wgmma at all.  Fewer
+//     ALU operations a plane (x as the B operand, so that its planes are
+//     a vectorised pass; a wider N per wgmma), a transposed w kept across
+//     sweeps, and a persistent grid that overlaps a tile's first loads
+//     with the previous tile's work are the next levers.
 //
 // int32 operands (a plane past the low byte; no preset, only sweep
 // cases): cuda_core_kernel, the first port's CUDA-core body.  A block
@@ -69,83 +117,241 @@
 // a group as stored int32 and extracts planes in registers; int32 MACs,
 // clamp, shift-add, plain stores.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <chrono>
+
 namespace {
 
-// ------------------------------------------------ tensor-core instantiation
+// ------------------------------------------------- tensor-core instantiation
 // Tile constants; kernel.py's planner holds the same numbers and the
 // launch refuses a plan made for others.
-constexpr int BM = 64;             // output rows per block
-constexpr int BN = 32;             // output columns per block
-constexpr int KC = 128;            // k rows per staged chunk
-constexpr int STAGES = 3;          // chunks in flight
-constexpr int KSTEP = 32;          // k of one mma
-constexpr int WARPS_M = 2, WARPS_N = 2;
-constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-constexpr int WM = BM / WARPS_M / 16;   // m16 fragments per warp
-constexpr int WN = BN / WARPS_N / 8;    // n8 fragments per warp
+constexpr int BM = 64;                  // output rows per block
+constexpr int BN = 64;                  // output columns per block (wgmma N)
+constexpr int KC = 128;                 // k rows per staged chunk
+constexpr int KSTEP = 32;               // k of one wgmma
+constexpr int CONSUMERS = 256;          // two consumer warpgroups
+constexpr int PRODUCERS = 128;          // and one producer warpgroup
+constexpr int THREADS = CONSUMERS + PRODUCERS;
+constexpr int CONSUMER_REGS = 232;      // setmaxnreg: 2 x 128 x 232 +
+constexpr int PRODUCER_REGS = 40;       // 128 x 40 <= 65536
+constexpr int PAIRS = 4;                // (phase, slice) pairs a warpgroup
 constexpr int MAX_S = 8;                // slices of a uint8 weight
-constexpr int XSTR = KC + 16;      // bytes per staged x row: conflict-free
-constexpr int WSTR = BN + 16;      // bytes per staged w row
-constexpr int X_STAGE = BM * XSTR;
-constexpr int W_STAGE = KC * WSTR;
-constexpr int MMA_SMEM = STAGES * (X_STAGE + W_STAGE);
+constexpr int MAX_STAGES = 16;
+constexpr int SMEM_LIMIT = 232448;      // a block's shared-memory ceiling
+constexpr int ALIGN = 1024;             // the 128-byte swizzle's period
+// staged raw chunks: TMA boxes, or rows of cp.async words (one word of
+// slack for a row's offset, padded so fragment loads miss no bank twice)
+constexpr int X_TMA_BYTES = BM * KC;
+constexpr int X_CP_PITCH = KC + 16;
+constexpr int X_CP_BYTES = BM * X_CP_PITCH;
+constexpr int W_TMA_BYTES = KC * BN;
+constexpr int W_CP_PITCH = BN + 16;
+constexpr int W_CP_BYTES = KC * W_CP_PITCH;
+// K-major slice planes in the no-swizzle core-matrix layout
+constexpr int CORE = 128;               // 8 columns x 16 k bytes
+constexpr int LBO = CORE;               // next core along k
+constexpr int SBO = (KC / 16) * CORE + 16;   // next 8 columns, padded
+constexpr int PLANE = (BN / 8) * SBO;
+constexpr int PLANE_SET = 2 * PLANE;    // the slices of one sweep
+constexpr int PLANE_SETS = 3;
+constexpr int RING_OFFSET = (PLANE_SETS * PLANE_SET + ALIGN - 1) / ALIGN * ALIGN;
+constexpr int BARRIER_BYTES = 2 * MAX_STAGES * 8;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(src_bytes));
+static_assert(BM * BN * 4 <= PLANE_SETS * PLANE_SET,
+              "the totals hand-over reuses the plane buffers");
+
+// A ring slot: one chunk of x and one of w, by their load paths.
+__host__ __device__ constexpr int stage_bytes(bool x_tma, bool w_tma) {
+  return (x_tma ? X_TMA_BYTES : X_CP_BYTES) +
+         (w_tma ? W_TMA_BYTES : W_CP_BYTES);
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// As many slots as fit beside the plane buffers, at most MAX_STAGES.
+__host__ __device__ constexpr int ring_stages(bool x_tma, bool w_tma) {
+  constexpr int room = SMEM_LIMIT - ALIGN - RING_OFFSET - BARRIER_BYTES;
+  return room / stage_bytes(x_tma, w_tma) < MAX_STAGES
+             ? room / stage_bytes(x_tma, w_tma)
+             : MAX_STAGES;
 }
 
-__device__ __forceinline__ void cp_async_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(STAGES - 2));
+__host__ __device__ constexpr int wgmma_smem(bool x_tma, bool w_tma) {
+  return ALIGN + RING_OFFSET +
+         ring_stages(x_tma, w_tma) * stage_bytes(x_tma, w_tma) +
+         BARRIER_BYTES;
 }
 
-__device__ __forceinline__ void mma_u8(int (&d)[4], const unsigned (&a)[4],
-                                       const unsigned (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// A sweep runs a block's np phases against two slices while that keeps
+// to 2 * PAIRS pairs, else against one; the two consumer warpgroups take
+// alternate pairs, ceil(np * sb / 2) each.
+__host__ __device__ constexpr int sweep_slices(int np) {
+  return np <= PAIRS ? 2 : 1;
 }
 
-// Rows of group g (the last group may be short).
-__device__ __forceinline__ int group_len(int g, int R, int pr) {
-  return min(pr, R - g * pr);
+__host__ __device__ constexpr int live_pairs(int np) {
+  return (np * sweep_slices(np) + 1) / 2;
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// the barrier completes a phase only after this thread's earlier
+// cp.async copies have landed (counts as one of its expected arrivals)
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(CONSUMERS) : "memory");
+}
+
+// The fence takes the group's descriptors as operands so that they are
+// computed before it.
+template <int N>
+__device__ __forceinline__ void wgmma_fence(const uint64_t (&d0)[N],
+                                            const uint64_t (&d1)[N]) {
+  asm volatile("wgmma.fence.sync.aligned;\n"
+               :: "l"(d0[0]), "l"(d0[N > 1 ? 1 : 0]), "l"(d0[N > 2 ? 2 : 0]),
+                  "l"(d0[N > 3 ? 3 : 0]), "l"(d1[0]), "l"(d1[N > 1 ? 1 : 0]),
+                  "l"(d1[N > 2 ? 2 : 0]), "l"(d1[N > 3 ? 3 : 0])
+               : "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// retires every wgmma group this warpgroup committed
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving accesses of an accumulator across the
+// asynchronous wgmma that writes it.
+__device__ __forceinline__ void fence_acc(uint32_t (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+
+// B: K-major, no swizzle; start, leading (k) and stride (n) byte offsets
+// in 16-byte units
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(LBO >> 4) << 16) |
+         (static_cast<uint64_t>(SBO >> 4) << 32);
+}
+
+// d += a (64 x 32 u8, registers) * b (32 x 64 u8, shared memory)
+__device__ __forceinline__ void wgmma_u8(uint32_t (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  // scale-d is the immediate 1 (D += A * B): no instruction may define a
+  // wgmma input between the fence and the commit
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.u8.u8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, %37;\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(1));
+}
+
+// byte offset of 4-byte word (n, 4*kq .. 4*kq+3) in a slice plane
+__device__ __forceinline__ int plane_offset(int n, int kq) {
+  return (n >> 3) * SBO + (kq >> 2) * CORE + (n & 7) * 16 + (kq & 3) * 4;
+}
+
+// low byte offset of a row within its 4-byte word
+__device__ __forceinline__ int word_offset(const uint8_t* p) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(p) & 3);
+}
+
+// 4 bytes at byte q of a staged cp.async row (q need not be aligned)
+__device__ __forceinline__ uint32_t lds32_at(const uint8_t* row, int q) {
+  const uint8_t* p = row + (q & ~3);
+  return __funnelshift_r(lds32(p), lds32(p + 4), (q & 3) * 8);
+}
+
+// Rows [g*pr, min(R, (g+1)*pr)) of group g, in chunks of KC.
 __device__ __forceinline__ int group_chunks(int g, int R, int pr) {
-  const int ksteps = (group_len(g, R, pr) + KSTEP - 1) / KSTEP;
-  return (ksteps * KSTEP + KC - 1) / KC;
+  return (min(R, (g + 1) * pr) - g * pr + KC - 1) / KC;
 }
 
-// Position in a block's chunk sequence: phase, group, chunk of group.
-struct Cursor {
-  int p, g, ch;
-  __device__ void advance(int g_begin, int g_end, int R, int pr) {
-    if (++ch == group_chunks(g, R, pr)) {
-      ch = 0;
-      if (++g == g_end) {
-        g = g_begin;
-        ++p;
-      }
-    }
-  }
-};
-
-__global__ void __launch_bounds__(THREADS)
-mma_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
-           uint32_t* __restrict__ out, int M, int R, int C, int n_p,
-           int n_s, int db, int cb, int pr, int adc_max, int gpb, int ppb,
-           int x_vec, int w_vec) {
-  extern __shared__ __align__(16) uint8_t smem[];
+// LIVE: pairs a consumer warpgroup runs in each sweep, live_pairs(np)
+template <bool X_TMA, bool W_TMA, int LIVE>
+__global__ void __launch_bounds__(THREADS, 1)
+wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+             const __grid_constant__ CUtensorMap w_map,
+             const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
+             uint32_t* __restrict__ out, int M, int R, int C, int n_p,
+             int n_s, int db, int cb, int pr, int adc_max, int gpb, int ppb,
+             int resident) {
+  constexpr int X_SLOT = X_TMA ? X_TMA_BYTES : X_CP_BYTES;
+  constexpr int STAGE = stage_bytes(X_TMA, W_TMA);
+  constexpr int STAGES = ring_stages(X_TMA, W_TMA);
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((ALIGN - (smem_u32(smem_raw) & (ALIGN - 1))) &
+                              (ALIGN - 1));
+  uint8_t* planes = smem;
+  uint8_t* ring = smem + RING_OFFSET;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE);
+  uint64_t* empty = full + MAX_STAGES;
 
   // which output tile, groups and phases this block owns
   const int n_ct = (C + BN - 1) / BN;
@@ -156,187 +362,278 @@ mma_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
   const int g_begin = (blockIdx.y / p_splits) * gpb;
   const int g_end = min(n_groups, g_begin + gpb);
   const int p_begin = (blockIdx.y % p_splits) * ppb;
-  const int p_end = min(n_p, p_begin + ppb);
+  const int np = min(n_p, p_begin + ppb) - p_begin;
   const int t = blockIdx.z;
-  const uint8_t* xt = x + (size_t)t * M * R;
-  const uint8_t* wt = w + (size_t)t * R * C;
+  const int sb = sweep_slices(np);
+  const int sweeps = (n_s + sb - 1) / sb;
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int gid = lane / 4, tig = lane % 4;     // mma fragment coordinates
-  const int wrow = (warp / WARPS_N) * (WM * 16);
-  const int wcol = (warp % WARPS_N) * (WN * 8);
-  // a warp whose rows or columns all lie past M or C computes nothing
-  const bool active = m0 + wrow < M && c0 + wcol < C;
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(smem_u32(full + i), X_TMA && W_TMA ? 1 : 1 + PRODUCERS);
+      mbar_init(smem_u32(empty + i), CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  int chunks_per_phase = 0;
-  for (int g = g_begin; g < g_end; ++g)
-    chunks_per_phase += group_chunks(g, R, pr);
-  const int total = (p_end - p_begin) * chunks_per_phase;
-
-  // fill ring slot `slot` with chunk `ch` of group `g` (raw bytes; rows
-  // past the group's end, M or C read as 0)
-  auto stage = [&](const Cursor& at, int slot) {
-    uint8_t* xs = smem + slot * X_STAGE;
-    uint8_t* ws = smem + STAGES * X_STAGE + slot * W_STAGE;
-    const int k0 = at.g * pr + at.ch * KC;
-    const int kv = min(KC, at.g * pr + group_len(at.g, R, pr) - k0);
-    if (x_vec) {
-      for (int i = tid; i < BM * (KC / 16); i += THREADS) {
-        const int row = i / (KC / 16), k = (i % (KC / 16)) * 16;
-        const int m = m0 + row;
-        const int n = (m < M) ? max(0, min(16, kv - k)) : 0;
-        cp_async16(xs + row * XSTR + k,
-                   n ? xt + (size_t)m * R + k0 + k : xt, n);
-      }
-    } else {
-      for (int i = tid; i < BM * KC; i += THREADS) {
-        const int row = i / KC, k = i % KC;
-        const int m = m0 + row;
-        xs[row * XSTR + k] =
-            (m < M && k < kv) ? xt[(size_t)m * R + k0 + k] : uint8_t(0);
+  if (tid >= CONSUMERS) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    const int ptid = tid - CONSUMERS;
+    int it = 0;
+    for (int g = g_begin; g < g_end; ++g) {
+      const int gbeg = g * pr, gend = min(R, gbeg + pr);
+      const int nch = group_chunks(g, R, pr);
+      const int passes = resident ? 1 : sweeps;
+      for (int pass = 0; pass < passes; ++pass) {
+        for (int ch = 0; ch < nch; ++ch, ++it) {
+          const int slot = it % STAGES;
+          mbar_wait(smem_u32(empty + slot), ((it / STAGES) & 1) ^ 1);
+          uint8_t* xs = ring + slot * STAGE;
+          uint8_t* ws = xs + X_SLOT;
+          const uint32_t fb = smem_u32(full + slot);
+          const int k0 = gbeg + ch * KC;
+          const int kv = min(KC, gend - k0);
+          if (ptid == 0) {
+            if (X_TMA || W_TMA) {
+              mbar_expect_tx(fb, (X_TMA ? X_TMA_BYTES : 0) +
+                                     (W_TMA ? W_TMA_BYTES : 0));
+            } else {
+              mbar_arrive(fb);
+            }
+            if (X_TMA) tma_load_3d(smem_u32(xs), &x_map, fb, k0, m0, t);
+            if (W_TMA) tma_load_3d(smem_u32(ws), &w_map, fb, c0, k0, t);
+          }
+          if (!X_TMA) {
+            // the aligned words covering each row's kv bytes; rows past M
+            // stay stale (their outputs are never stored)
+            constexpr int WORDS = X_CP_PITCH / 4 - 3;
+            for (int i = ptid; i < BM * WORDS; i += PRODUCERS) {
+              const int mm = i / WORDS, j = i - mm * WORDS;
+              if (m0 + mm >= M) break;
+              const uint8_t* row = x + ((size_t)t * M + m0 + mm) * R + k0;
+              if (j < (word_offset(row) + kv + 3) / 4)
+                cp_async4(smem_u32(xs + mm * X_CP_PITCH + 4 * j),
+                          row - word_offset(row) + 4 * j);
+            }
+          }
+          if (!W_TMA) {
+            constexpr int WORDS = W_CP_PITCH / 4 - 3;
+            const int nc = min(BN, C - c0);
+            for (int i = ptid; i < kv * WORDS; i += PRODUCERS) {
+              const int kk = i / WORDS, j = i - kk * WORDS;
+              const uint8_t* row = w + ((size_t)t * R + k0 + kk) * C + c0;
+              if (j < (word_offset(row) + nc + 3) / 4)
+                cp_async4(smem_u32(ws + kk * W_CP_PITCH + 4 * j),
+                          row - word_offset(row) + 4 * j);
+            }
+          }
+          if (!X_TMA || !W_TMA) cp_async_arrive(fb);
+        }
       }
     }
-    if (w_vec) {
-      for (int i = tid; i < KC * (BN / 16); i += THREADS) {
-        const int row = i / (BN / 16), c = (i % (BN / 16)) * 16;
-        const int n = (row < kv && c0 + c < C) ? 16 : 0;
-        cp_async16(ws + row * WSTR + c,
-                   n ? wt + (size_t)(k0 + row) * C + c0 + c : wt, n);
-      }
-    } else {
-      for (int i = tid; i < KC * BN; i += THREADS) {
-        const int row = i / BN, c = i % BN;
-        ws[row * WSTR + c] = (row < kv && c0 + c < C)
-                                 ? wt[(size_t)(k0 + row) * C + c0 + c]
-                                 : uint8_t(0);
-      }
-    }
-  };
+    return;
+  }
 
-  int acc[MAX_S][WM][WN][4];
-  uint32_t tot[WM][WN][4];
-#pragma unroll
-  for (int i = 0; i < WM; ++i)
-#pragma unroll
-    for (int j = 0; j < WN; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        tot[i][j][r] = 0;
-#pragma unroll
-        for (int s = 0; s < MAX_S; ++s) acc[s][i][j][r] = 0;
-      }
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+  const int wg = tid / 128;                 // consumer warpgroup
+  const int wtid = tid % 128;
+  const int lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;  // fragment coordinates
+  const int ma = (wtid / 32) * 16 + gid;     // A rows ma and ma + 8
+  // plane pass: 4 x 4 byte blocks (k rows 4*kq.., columns 4*pc4..)
+  const int pc4 = tid % 16, pkq = tid / 16;
   const uint32_t pmask = ((1u << db) - 1) * 0x01010101u;
   const uint32_t smask = ((1u << cb) - 1) * 0x01010101u;
 
-  // ahead: the next chunk to stage; now: the chunk computed on
-  Cursor ahead{p_begin, g_begin, 0}, now{p_begin, g_begin, 0};
-#pragma unroll 1
-  for (int i = 0; i < STAGES - 1; ++i) {
-    if (i < total) {
-      stage(ahead, i);
-      ahead.advance(g_begin, g_end, R, pr);
-    }
-    cp_async_commit();
-  }
+  uint32_t acc[LIVE][32];
+  uint32_t tot[32];
+#pragma unroll
+  for (int r = 0; r < 32; ++r) tot[r] = 0;
 
-#pragma unroll 1
-  for (int i = 0; i < total; ++i) {
-    cp_async_wait_ring();
-    __syncthreads();   // chunk i landed; every warp is done with i - 1
-    if (i + STAGES - 1 < total) {
-      stage(ahead, (i + STAGES - 1) % STAGES);
-      ahead.advance(g_begin, g_end, R, pr);
-    }
-    cp_async_commit();
+  int it = 0, pset_i = 0;
+  for (int g = g_begin; g < g_end; ++g) {
+    const int gbeg = g * pr, gend = min(R, gbeg + pr);
+    const int nch = group_chunks(g, R, pr);
+    for (int sw = 0; sw < sweeps; ++sw) {
+      const int s0 = sw * sb;
+      const int nsl = min(sb, n_s - s0);
+      // this warpgroup's pairs: j = 2*i + wg of the sweep's np * sb; a
+      // pair past the last slice (S = 1) runs on a zero plane mask
+      bool act[LIVE];
+      uint32_t xsh[LIVE], xmask[LIVE], osh[LIVE];
+      int psl[LIVE];
+#pragma unroll
+      for (int i = 0; i < LIVE; ++i) {
+        const int j = 2 * i + wg;
+        const int p = p_begin + j % np, sl = j / np;
+        act[i] = sl < nsl;
+        xsh[i] = p * db;
+        xmask[i] = act[i] ? pmask : 0u;
+        osh[i] = p * db + (s0 + sl) * cb;
+        psl[i] = act[i] ? sl : 0;
+#pragma unroll
+        for (int r = 0; r < 32; ++r) acc[i][r] = 0;
+      }
+      for (int ch = 0; ch < nch; ++ch) {
+        const int i_stream = it + (resident ? ch : sw * nch + ch);
+        const int slot = i_stream % STAGES;
+        mbar_wait(smem_u32(full + slot), (i_stream / STAGES) & 1);
+        const uint8_t* xs = ring + slot * STAGE;
+        const uint8_t* ws = xs + X_SLOT;
+        const int k0 = gbeg + ch * KC;
+        const int kv = min(KC, gend - k0);
+        const int nks = (kv + KSTEP - 1) / KSTEP;
+        uint8_t* pset = planes + (pset_i % PLANE_SETS) * PLANE_SET;
 
-    if (active) {
-      const uint8_t* xs = smem + (i % STAGES) * X_STAGE;
-      const uint8_t* ws = smem + STAGES * X_STAGE + (i % STAGES) * W_STAGE;
-      const int k0 = now.g * pr + now.ch * KC;
-      const int kv = min(KC, now.g * pr + group_len(now.g, R, pr) - k0);
-      const int nks = (kv + KSTEP - 1) / KSTEP;
-      const int xsh = now.p * db;
+        // slice planes of this chunk, K-major; rows past kv are zero
 #pragma unroll
-      for (int ks = 0; ks < KC / KSTEP; ++ks) {
-        if (ks >= nks) break;
-        uint32_t a[WM][4];
+        for (int item = 0; item < 2; ++item) {
+          const int kq = pkq + 16 * item;
+          if (4 * kq >= nks * KSTEP) continue;
+          uint32_t rw[4];
 #pragma unroll
-        for (int fm = 0; fm < WM; ++fm) {
-          const uint8_t* base =
-              xs + (wrow + fm * 16 + gid) * XSTR + ks * KSTEP + tig * 4;
-          a[fm][0] = *reinterpret_cast<const uint32_t*>(base);
-          a[fm][1] = *reinterpret_cast<const uint32_t*>(base + 8 * XSTR);
-          a[fm][2] = *reinterpret_cast<const uint32_t*>(base + 16);
-          a[fm][3] =
-              *reinterpret_cast<const uint32_t*>(base + 8 * XSTR + 16);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) a[fm][r] = (a[fm][r] >> xsh) & pmask;
-        }
-        uint32_t b[WN][2];
-#pragma unroll
-        for (int fn = 0; fn < WN; ++fn) {
-          const uint8_t* col =
-              ws + (ks * KSTEP + tig * 4) * WSTR + wcol + fn * 8 + gid;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const uint8_t* q = col + h * 16 * WSTR;
-            b[fn][h] = (uint32_t)q[0] | ((uint32_t)q[WSTR] << 8) |
-                       ((uint32_t)q[2 * WSTR] << 16) |
-                       ((uint32_t)q[3 * WSTR] << 24);
+          for (int j = 0; j < 4; ++j) {
+            const int kk = 4 * kq + j;
+            if (kk >= kv) {
+              rw[j] = 0;
+            } else if (W_TMA) {
+              rw[j] = lds32(ws + kk * BN + 4 * pc4);
+            } else {
+              const uint8_t* row = w + ((size_t)t * R + k0 + kk) * C + c0;
+              rw[j] = lds32_at(ws + kk * W_CP_PITCH,
+                               word_offset(row) + 4 * pc4);
+            }
           }
-        }
+          const uint32_t u0 = __byte_perm(rw[0], rw[1], 0x5140);
+          const uint32_t u1 = __byte_perm(rw[0], rw[1], 0x7362);
+          const uint32_t v0 = __byte_perm(rw[2], rw[3], 0x5140);
+          const uint32_t v1 = __byte_perm(rw[2], rw[3], 0x7362);
+          const uint32_t col[4] = {__byte_perm(u0, v0, 0x5410),
+                                   __byte_perm(u0, v0, 0x7632),
+                                   __byte_perm(u1, v1, 0x5410),
+                                   __byte_perm(u1, v1, 0x7632)};
 #pragma unroll
-        for (int s = 0; s < MAX_S; ++s) {
-          if (s < n_s) {
+          for (int sl = 0; sl < 2; ++sl) {
+            if (sl < nsl) {
+              const int sh = (s0 + sl) * cb;
+              uint8_t* plane = pset + sl * PLANE;
 #pragma unroll
-            for (int fn = 0; fn < WN; ++fn) {
-              const uint32_t bs[2] = {(b[fn][0] >> (s * cb)) & smask,
-                                      (b[fn][1] >> (s * cb)) & smask};
-#pragma unroll
-              for (int fm = 0; fm < WM; ++fm)
-                mma_u8(acc[s][fm][fn], a[fm], bs);
+              for (int c = 0; c < 4; ++c)
+                *reinterpret_cast<uint32_t*>(
+                    plane + plane_offset(4 * pc4 + c, kq)) =
+                    (col[c] >> sh) & smask;
             }
           }
         }
-      }
-      // the group's last chunk: one analog read per (p, s), ADC clamp,
-      // digital shift-add (uint32 wraps like the plain version's int32)
-      if (now.ch == group_chunks(now.g, R, pr) - 1) {
-#pragma unroll
-        for (int s = 0; s < MAX_S; ++s) {
-          if (s < n_s) {
-            const int sh = now.p * db + s * cb;
-#pragma unroll
-            for (int fm = 0; fm < WM; ++fm)
-#pragma unroll
-              for (int fn = 0; fn < WN; ++fn)
-#pragma unroll
-                for (int r = 0; r < 4; ++r) {
-                  tot[fm][fn][r] += (uint32_t)min(acc[s][fm][fn][r], adc_max)
-                                    << sh;
-                  acc[s][fm][fn][r] = 0;
-                }
-          }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        consumer_sync();
+
+        // A rows' offsets within their words (cp.async path)
+        int da = 0, db8 = 0;
+        if (!X_TMA) {
+          da = word_offset(x + ((size_t)t * M + m0 + ma) * R + k0);
+          db8 = word_offset(x + ((size_t)t * M + m0 + ma + 8) * R + k0);
         }
+        const uint32_t pbase = smem_u32(pset);
+        // the pairs' phase planes of k-step ks into the register set A, and
+        // the slice-plane descriptors
+        auto planes_of = [&](uint32_t(&A)[LIVE][4], uint64_t(&desc)[LIVE],
+                             int ks) {
+          const int kb = ks * KSTEP + tig * 4;
+          uint32_t raw[4];
+          if (X_TMA) {
+            // 128-byte swizzle: 16-byte chunk c of row m sits at c ^ (m & 7)
+            const uint8_t* ra = xs + ma * KC;
+            const int lo = (((kb >> 4) ^ gid) << 4) | (kb & 15);
+            const int hi = ((((kb >> 4) + 1) ^ gid) << 4) | (kb & 15);
+            raw[0] = lds32(ra + lo);
+            raw[1] = lds32(ra + 8 * KC + lo);
+            raw[2] = lds32(ra + hi);
+            raw[3] = lds32(ra + 8 * KC + hi);
+          } else {
+            const uint8_t* ra = xs + ma * X_CP_PITCH;
+            const uint8_t* rb = ra + 8 * X_CP_PITCH;
+            raw[0] = lds32_at(ra, da + kb);
+            raw[1] = lds32_at(rb, db8 + kb);
+            raw[2] = lds32_at(ra, da + kb + 16);
+            raw[3] = lds32_at(rb, db8 + kb + 16);
+          }
+#pragma unroll
+          for (int i = 0; i < LIVE; ++i) {
+            desc[i] = b_desc(pbase + psl[i] * PLANE + ks * 2 * CORE);
+#pragma unroll
+            for (int r = 0; r < 4; ++r) A[i][r] = (raw[r] >> xsh[i]) & xmask[i];
+          }
+        };
+        // Two k-steps a wgmma group.  The wgmmas read their A registers
+        // asynchronously, so the previous group is retired before any of
+        // the next group's inputs is defined; the group left in flight at
+        // a chunk's end overlaps the next chunk's plane pass.
+#pragma unroll 1
+        for (int ks = 0; ks < nks; ks += 2) {
+          uint32_t a0[LIVE][4], a1[LIVE][4];
+          uint64_t d0[LIVE], d1[LIVE];
+          wgmma_wait_all();
+          planes_of(a0, d0, ks);
+          if (ks + 1 < nks) {
+            planes_of(a1, d1, ks + 1);
+            wgmma_fence(d0, d1);
+#pragma unroll
+            for (int i = 0; i < LIVE; ++i) wgmma_u8(acc[i], a0[i], d0[i]);
+#pragma unroll
+            for (int i = 0; i < LIVE; ++i) wgmma_u8(acc[i], a1[i], d1[i]);
+          } else {
+            wgmma_fence(d0, d0);
+#pragma unroll
+            for (int i = 0; i < LIVE; ++i) wgmma_u8(acc[i], a0[i], d0[i]);
+          }
+          wgmma_commit();
+        }
+        // every read of this slot is done: release it after its last use
+        if (!resident || sw == sweeps - 1) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(smem_u32(empty + slot));
+        }
+        ++pset_i;
+      }
+      wgmma_wait_all();
+      // the group's analog reads: ADC clamp, digital shift-add (uint32
+      // wraps like the plain version's int32)
+#pragma unroll
+      for (int i = 0; i < LIVE; ++i) {
+        fence_acc(acc[i]);
+        const uint32_t keep = act[i] ? ~0u : 0u;
+#pragma unroll
+        for (int r = 0; r < 32; ++r)
+          tot[r] += (static_cast<uint32_t>(
+                         min(static_cast<int>(acc[i][r]), adc_max))
+                     << osh[i]) & keep;
       }
     }
-    now.advance(g_begin, g_end, R, pr);
+    it += resident ? nch : sweeps * nch;
   }
-  asm volatile("cp.async.wait_all;\n" ::);
 
-  if (!active) return;
+  // warpgroup 1 hands its totals to warpgroup 0 through the (drained)
+  // plane buffers; one atomic add an output
+  uint32_t* handover = reinterpret_cast<uint32_t*>(planes);
+  consumer_sync();
+  if (wg == 1) {
 #pragma unroll
-  for (int fm = 0; fm < WM; ++fm)
+    for (int r = 0; r < 32; ++r) handover[r * 128 + wtid] = tot[r];
+  }
+  consumer_sync();
+  if (wg == 1) return;
 #pragma unroll
-    for (int fn = 0; fn < WN; ++fn)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int m = m0 + wrow + fm * 16 + gid + (r >= 2 ? 8 : 0);
-        const int c = c0 + wcol + fn * 8 + tig * 2 + (r & 1);
-        if (m < M && c < C)
-          atomicAdd(out + ((size_t)t * M + m) * C + c, tot[fm][fn][r]);
-      }
+  for (int r = 0; r < 32; ++r) {
+    const int m = m0 + ma + 8 * ((r >> 1) & 1);
+    const int c = c0 + 8 * (r >> 2) + 2 * tig + (r & 1);
+    if (m < M && c < C)
+      atomicAdd(out + ((size_t)t * M + m) * C + c,
+                tot[r] + handover[r * 128 + wtid]);
+  }
 }
 
 // -------------------------------------------------- CUDA-core instantiation
@@ -451,8 +748,112 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool (&done)[MAX_DEVICES]) {
   return err;
 }
 
-bool mma_smem_set[MAX_DEVICES] = {};
+bool wgmma_smem_set[4 * PAIRS][MAX_DEVICES] = {};
 bool cc_smem_set[MAX_DEVICES] = {};
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime so that the
+// library links against libcudart alone
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (T, rows, inner) uint8 tensor as 3-D tiles of box_inner x box_rows x 1
+// (zero fill out of range).
+bool encode_3d(CUtensorMap* map, const void* base, int T, int rows,
+               int inner, int box_inner, int box_rows, bool swizzle128) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
+                              (cuuint64_t)T};
+  const cuuint64_t strides[2] = {(cuuint64_t)inner,
+                                 (cuuint64_t)inner * (cuuint64_t)rows};
+  const cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                       : CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The 16-byte rule: TMA needs a 16-byte-aligned base and row pitch; x's
+// chunks also start at multiples of parallel_row.
+bool x_takes_tma(const void* x, int R, int pr) {
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0 && R % 16 == 0 &&
+         pr % 16 == 0;
+}
+
+bool w_takes_tma(const void* w, int C) {
+  return reinterpret_cast<uintptr_t>(w) % 16 == 0 && C % 16 == 0;
+}
+
+template <bool X_TMA, bool W_TMA, int LIVE>
+cudaError_t launch_wgmma(const CUtensorMap& xm, const CUtensorMap& wm,
+                         const void* x, const void* w, void* out, int T,
+                         int M, int R, int C, int n_p, int n_s, int db,
+                         int cb, int pr, int adc_max, int gpb, int ppb,
+                         int grid_x, int grid_y, int resident,
+                         cudaStream_t s) {
+  constexpr int smem = wgmma_smem(X_TMA, W_TMA);
+  cudaError_t err =
+      allow_smem(wgmma_kernel<X_TMA, W_TMA, LIVE>, smem,
+                 wgmma_smem_set[(2 * X_TMA + W_TMA) * PAIRS + LIVE - 1]);
+  if (err != cudaSuccess) return err;
+  wgmma_kernel<X_TMA, W_TMA, LIVE>
+      <<<dim3(grid_x, grid_y, T), THREADS, smem, s>>>(
+          xm, wm, static_cast<const uint8_t*>(x),
+          static_cast<const uint8_t*>(w), static_cast<uint32_t*>(out), M, R,
+          C, n_p, n_s, db, cb, pr, adc_max, gpb, ppb, resident);
+  return cudaGetLastError();
+}
+
+template <bool X_TMA, bool W_TMA>
+cudaError_t launch_live(const CUtensorMap& xm, const CUtensorMap& wm,
+                        const void* x, const void* w, void* out, int T,
+                        int M, int R, int C, int n_p, int n_s, int db, int cb,
+                        int pr, int adc_max, int gpb, int ppb, int grid_x,
+                        int grid_y, int resident, cudaStream_t s) {
+  switch (live_pairs(ppb)) {
+    case 1:
+      return launch_wgmma<X_TMA, W_TMA, 1>(xm, wm, x, w, out, T, M, R, C, n_p,
+                                           n_s, db, cb, pr, adc_max, gpb, ppb,
+                                           grid_x, grid_y, resident, s);
+    case 2:
+      return launch_wgmma<X_TMA, W_TMA, 2>(xm, wm, x, w, out, T, M, R, C, n_p,
+                                           n_s, db, cb, pr, adc_max, gpb, ppb,
+                                           grid_x, grid_y, resident, s);
+    case 3:
+      return launch_wgmma<X_TMA, W_TMA, 3>(xm, wm, x, w, out, T, M, R, C, n_p,
+                                           n_s, db, cb, pr, adc_max, gpb, ppb,
+                                           grid_x, grid_y, resident, s);
+    default:
+      return launch_wgmma<X_TMA, W_TMA, 4>(xm, wm, x, w, out, T, M, R, C, n_p,
+                                           n_s, db, cb, pr, adc_max, gpb, ppb,
+                                           grid_x, grid_y, resident, s);
+  }
+}
 
 }  // namespace
 
@@ -460,36 +861,54 @@ bool cc_smem_set[MAX_DEVICES] = {};
 // current device, out zeroed; elem_bytes is 1 (uint8 operands: the
 // tensor-core kernel) or 4 (int32: the CUDA-core kernel).  The launch
 // plan (tile sizes bm x bn, chunk kc, groups and phases per block, grid,
-// shared memory) comes from kernel.py::plan_launch; a plan that does not
-// match this file's constants is refused.  Returns the cudaError_t of
-// the launch (0 on success).
+// shared memory, ring stages, load paths, resident groups) comes from
+// kernel.py::plan_launch; a plan that does not match this file's
+// constants and rules is refused.  Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int cim_mvm_tiles_launch(const void* x, const void* w, void* out,
                                     int T, int M, int R, int C, int n_p,
                                     int n_s, int db, int cb, int pr,
                                     int adc_max, int elem_bytes, int bm,
                                     int bn, int kc, int gpb, int ppb,
                                     int grid_x, int grid_y, int smem,
-                                    void* stream) {
+                                    int stages, int x_tma, int w_tma,
+                                    int resident, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_groups = (R + pr - 1) / pr;
   if (elem_bytes == 1) {
     const int n_ct = (C + BN - 1) / BN;
     const int splits = ((n_groups + gpb - 1) / gpb) * ((n_p + ppb - 1) / ppb);
-    if (bm != BM || bn != BN || kc != KC || smem != MMA_SMEM ||
+    const bool xt = x_takes_tma(x, R, pr), wt = w_takes_tma(w, C);
+    if (bm != BM || bn != BN || kc != KC || x_tma != xt || w_tma != wt ||
+        smem != wgmma_smem(xt, wt) || stages != ring_stages(xt, wt) ||
+        resident != ((pr + KC - 1) / KC <= stages) || n_p > 8 ||
+        n_p % ppb != 0 ||
         n_s > MAX_S || db > 8 || cb > 8 ||
         grid_x != ((M + BM - 1) / BM) * n_ct || grid_y != splits)
       return (int)cudaErrorInvalidValue;
-    cudaError_t err = allow_smem(mma_kernel, MMA_SMEM, mma_smem_set);
-    if (err != cudaSuccess) return (int)err;
-    const int x_vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
-                      R % 16 == 0 && pr % 16 == 0;
-    const int w_vec = (reinterpret_cast<uintptr_t>(w) % 16 == 0) &&
-                      C % 16 == 0;
-    mma_kernel<<<dim3(grid_x, grid_y, T), THREADS, smem, s>>>(
-        static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(w),
-        static_cast<uint32_t*>(out), M, R, C, n_p, n_s, db, cb, pr,
-        adc_max, gpb, ppb, x_vec, w_vec);
-    return (int)cudaGetLastError();
+    alignas(64) CUtensorMap xm = {}, wm = {};
+    if (xt && !encode_3d(&xm, x, T, M, R, KC, BM, true))
+      return (int)cudaErrorInvalidValue;
+    if (wt && !encode_3d(&wm, w, T, R, C, BN, KC, false))
+      return (int)cudaErrorInvalidValue;
+    cudaError_t err;
+    if (xt && wt)
+      err = launch_live<true, true>(xm, wm, x, w, out, T, M, R, C, n_p, n_s,
+                                    db, cb, pr, adc_max, gpb, ppb, grid_x,
+                                    grid_y, resident, s);
+    else if (xt)
+      err = launch_live<true, false>(xm, wm, x, w, out, T, M, R, C, n_p,
+                                     n_s, db, cb, pr, adc_max, gpb, ppb,
+                                     grid_x, grid_y, resident, s);
+    else if (wt)
+      err = launch_live<false, true>(xm, wm, x, w, out, T, M, R, C, n_p,
+                                     n_s, db, cb, pr, adc_max, gpb, ppb,
+                                     grid_x, grid_y, resident, s);
+    else
+      err = launch_live<false, false>(xm, wm, x, w, out, T, M, R, C, n_p,
+                                      n_s, db, cb, pr, adc_max, gpb, ppb,
+                                      grid_x, grid_y, resident, s);
+    return (int)err;
   }
   if (elem_bytes == 4) {
     const int n_ct = (C + CC_TILE - 1) / CC_TILE;
@@ -508,4 +927,18 @@ extern "C" int cim_mvm_tiles_launch(const void* x, const void* w, void* out,
     return (int)cudaGetLastError();
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// Mean host microseconds of encoding x's tensor map for a (T,M,R) launch,
+// over `reps` encodings (what every TMA launch pays on the host); -1 when
+// the map cannot be encoded.
+extern "C" double cim_mvm_encode_us(const void* x, int T, int M, int R,
+                                    int reps) {
+  alignas(64) CUtensorMap map = {};
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < reps; ++i)
+    if (!encode_3d(&map, x, T, M, R, KC, BM, true)) return -1.0;
+  const auto t1 = std::chrono::steady_clock::now();
+  return std::chrono::duration<double, std::micro>(t1 - t0).count() /
+         (reps > 0 ? reps : 1);
 }

@@ -17,11 +17,14 @@ and nowhere else):
 Operands are unsigned integers: uint8 when every phase and slice sits in
 the low 8 bits (``ceil(act_bits/dac_bits)*dac_bits <= 8`` and likewise
 for the weights), else int32 (see ``operand_dtype``).  uint8 operands
-run the tensor-core instantiation, int32 ones the CUDA-core one (see the
-source's header).  ``plan_launch`` decides, in plain Python, how the
-tensor-core kernel's work splits across blocks: by output tile, by a
-range of row groups and by a range of bit phases, each block adding its
-partial sums into the zeroed output with integer atomics.  A wrapper
+run the warp-specialised ``wgmma`` instantiation, int32 ones the
+CUDA-core one (see the source's header).  ``plan_launch`` decides, in
+plain Python, how the ``wgmma`` kernel's work splits across blocks (by
+output tile, by a range of row groups and by a range of bit phases, each
+block adding its partial sums into the zeroed output with integer
+atomics), which load path each operand takes (TMA where the 16-byte
+rule allows, else 4-byte ``cp.async``), the depth of the shared-memory
+ring and whether a row group stays resident in it.  A wrapper
 checks device, dtype, shape and contiguity, raises
 ``KernelArgumentError`` on anything else, allocates the output and
 launches on PyTorch's current stream.  It never falls back to the plain
@@ -99,9 +102,12 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         fn = lib.cim_mvm_tiles_launch
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 19
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 23
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        enc = lib.cim_mvm_encode_us
+        enc.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4
+        enc.restype = ctypes.c_double
         _LIB = lib
     return _LIB
 
@@ -121,16 +127,59 @@ def operand_dtype(params) -> torch.dtype:
 
 #: streaming multiprocessors of an H100 SXM
 SM_COUNT = 132
-#: blocks the planner aims for when the output tiles alone are fewer
-TARGET_BLOCKS = 2 * SM_COUNT
+#: blocks of one wave: the wgmma kernel holds one block per SM
+TARGET_BLOCKS = SM_COUNT
 #: shared memory one block may use on Hopper
 SMEM_LIMIT = 232_448
-#: tensor-core route: output tile, staged k-chunk, ring depth, mma depth
-MMA_BM, MMA_BN, MMA_KC, MMA_STAGES, K_STEP = 64, 32, 128, 3, 32
-#: staged row pitches in bytes (x rows of a chunk, w rows of a chunk)
-MMA_XSTR, MMA_WSTR = MMA_KC + 16, MMA_BN + 16
+#: wgmma route: output tile, staged k-chunk, wgmma depth
+WG_BM, WG_BN, WG_KC, K_STEP = 64, 64, 128, 32
+#: live (phase, slice) pairs of one consumer warpgroup; two warpgroups
+WG_PAIRS = 4
+#: the source's shared-memory layout: the 128-byte swizzle's alignment,
+#: three sets of two K-major slice planes (8-column groups 1040 bytes
+#: apart), the ring's barriers, and a ring slot's bytes per operand and
+#: load path (a TMA box, or padded rows of cp.async words)
+SMEM_ALIGN = 1024
+PLANE_BYTES = (WG_BN // 8) * ((WG_KC // 16) * 128 + 16)
+MAX_STAGES, PLANE_SETS = 16, 3
+RING_OFFSET = -(-PLANE_SETS * 2 * PLANE_BYTES // SMEM_ALIGN) * SMEM_ALIGN
+BARRIER_BYTES = 2 * MAX_STAGES * 8
+SLOT_BYTES = {("x", "tma"): WG_BM * WG_KC,
+              ("x", "cp.async"): WG_BM * (WG_KC + 16),
+              ("w", "tma"): WG_KC * WG_BN,
+              ("w", "cp.async"): WG_KC * (WG_BN + 16)}
 #: CUDA-core route (int32 operands): output tile, shared-memory budget
 CC_TILE, CC_SMEM_BUDGET = 64, 160 * 1024
+
+
+def load_paths(r: int, c: int, parallel_row: int, x_aligned: bool = True,
+               w_aligned: bool = True) -> Tuple[str, str]:
+    """(x, w) load paths by the 16-byte rule: TMA needs a 16-byte-aligned
+    base and a row pitch (R for x, C for w) that is a multiple of 16
+    bytes; x's chunks start at multiples of ``parallel_row``, so it must
+    be one too.  Otherwise 4-byte ``cp.async``."""
+    x = "tma" if x_aligned and r % 16 == 0 and parallel_row % 16 == 0 \
+        else "cp.async"
+    w = "tma" if w_aligned and c % 16 == 0 else "cp.async"
+    return x, w
+
+
+def ring_plan(x_path: str, w_path: str) -> Tuple[int, int]:
+    """(ring stages, dynamic shared-memory bytes) of the wgmma kernel
+    for these load paths: as many stages as fit beside the plane
+    buffers."""
+    stage = SLOT_BYTES["x", x_path] + SLOT_BYTES["w", w_path]
+    stages = min(MAX_STAGES, (SMEM_LIMIT - SMEM_ALIGN - RING_OFFSET
+                              - BARRIER_BYTES) // stage)
+    return stages, SMEM_ALIGN + RING_OFFSET + stages * stage + BARRIER_BYTES
+
+
+def sweep_shape(n_phases: int, n_s: int) -> Tuple[int, int]:
+    """(slices a sweep, sweeps a group) of a block owning ``n_phases``
+    phases: a sweep runs all its phases against two slices while that
+    keeps to 2 * WG_PAIRS live pairs, else against one."""
+    sb = 2 if n_phases <= WG_PAIRS else 1
+    return sb, math.ceil(n_s / sb)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,7 +192,7 @@ class LaunchPlan:
     phases of phase range ``by % phase_splits``, for every slice.
     """
 
-    route: str                 # "mma" (uint8) or "cuda_core" (int32)
+    route: str                 # "wgmma" (uint8) or "cuda_core" (int32)
     t: int
     m: int
     r: int
@@ -157,6 +206,10 @@ class LaunchPlan:
     groups_per_block: int
     phases_per_block: int
     smem_bytes: int
+    stages: int = 0            # ring depth (wgmma route)
+    x_path: str = ""           # "tma" or "cp.async" (wgmma route)
+    w_path: str = ""
+    resident: bool = False     # a row group's chunks stay in the ring
 
     @property
     def n_groups(self) -> int:
@@ -189,18 +242,35 @@ class LaunchPlan:
         return gx * gy * gz
 
 
-@functools.lru_cache(maxsize=1024)
-def plan_launch(params, t: int, m: int, r: int, c: int) -> LaunchPlan:
-    """The launch of ``params`` at (T, M, R, C).
+def _split_cost(tiles: int, n_groups: int, n_p: int, n_s: int, gpb: int,
+                ppb: int) -> Tuple[int, int, int]:
+    """Rank of a split: the busiest SM's load in waves of one block per
+    SM times a block's work (sweeps of its pairs plus one pair's worth
+    of plane pass each), then the atomic adds per output, then fewer
+    phase splits."""
+    splits = math.ceil(n_groups / gpb) * math.ceil(n_p / ppb)
+    sb, sweeps = sweep_shape(ppb, n_s)
+    waves = math.ceil(tiles * splits / TARGET_BLOCKS)
+    return (waves * gpb * sweeps * (ppb * sb + 1), splits,
+            math.ceil(n_p / ppb))
 
-    uint8 operands take the tensor-core kernel: output tiles of
-    MMA_BM x MMA_BN.  Where the tiles give fewer than TARGET_BLOCKS
-    blocks, the row groups and phases split into ranges, with the fewest
-    ranges (atomic adds per output element) that reach the target, and
-    phases before groups (phases are equal, the last group may be
-    short); where even a full split cannot reach it, every block takes
-    one group and one phase.  int32 operands take the CUDA-core kernel,
-    unsplit.
+
+@functools.lru_cache(maxsize=1024)
+def plan_launch(params, t: int, m: int, r: int, c: int,
+                x_aligned: bool = True,
+                w_aligned: bool = True) -> LaunchPlan:
+    """The launch of ``params`` at (T, M, R, C); ``x_aligned`` and
+    ``w_aligned`` say whether the operands' base addresses are 16-byte
+    aligned.
+
+    uint8 operands take the wgmma kernel: output tiles of WG_BM x WG_BN,
+    one block per SM.  The row groups and phases split into the ranges
+    that minimise ``_split_cost``: whole waves of blocks on SM_COUNT SMs
+    times one block's work, so a split that adds a partial wave, or
+    phase splits that repeat the slice-plane pass, lose to fewer blocks.
+    Phase ranges divide the phases evenly: every block runs the same
+    number of live pairs, which the kernel takes as a template argument.
+    int32 operands take the CUDA-core kernel, unsplit.
     """
     n_p = math.ceil(params.act_bits / params.dac_bits)
     n_s = math.ceil(params.weight_bits / params.cell_bits)
@@ -210,22 +280,26 @@ def plan_launch(params, t: int, m: int, r: int, c: int) -> LaunchPlan:
         kc = min(pr, CC_SMEM_BUDGET // (2 * CC_TILE * 4))
         return LaunchPlan("cuda_core", t, m, r, c, n_p, n_s, pr, CC_TILE,
                           CC_TILE, kc, n_groups, n_p, 2 * CC_TILE * kc * 4)
-    smem = MMA_STAGES * (MMA_BM * MMA_XSTR + MMA_KC * MMA_WSTR)
-    tiles = t * math.ceil(m / MMA_BM) * math.ceil(c / MMA_BN)
-    need = math.ceil(TARGET_BLOCKS / tiles)
-    gpb, ppb = n_groups, n_p
-    if n_groups * n_p <= need:
-        gpb, ppb = 1, 1
-    elif need > 1:
-        _, _, gpb, ppb = min(
-            (splits, gs, gpb_, ppb_)
-            for gpb_ in range(1, n_groups + 1)
-            for ppb_ in range(1, n_p + 1)
-            for gs in (math.ceil(n_groups / gpb_),)
-            for splits in (gs * math.ceil(n_p / ppb_),)
-            if splits >= need)
-    return LaunchPlan("mma", t, m, r, c, n_p, n_s, pr, MMA_BM, MMA_BN,
-                      MMA_KC, gpb, ppb, smem)
+    tiles = t * math.ceil(m / WG_BM) * math.ceil(c / WG_BN)
+    _, gpb, ppb = min(
+        (_split_cost(tiles, n_groups, n_p, n_s, gpb_, ppb_), gpb_, ppb_)
+        for gpb_ in range(1, n_groups + 1)
+        for ppb_ in range(1, n_p + 1) if n_p % ppb_ == 0)
+    x_path, w_path = load_paths(r, c, pr, x_aligned, w_aligned)
+    stages, smem = ring_plan(x_path, w_path)
+    return LaunchPlan("wgmma", t, m, r, c, n_p, n_s, pr, WG_BM, WG_BN,
+                      WG_KC, gpb, ppb, smem, stages, x_path, w_path,
+                      math.ceil(pr / WG_KC) <= stages)
+
+
+def tensor_map_encode_us(x: torch.Tensor, reps: int = 1000) -> float:
+    """Mean host microseconds of encoding the tensor map of a (T,M,R)
+    uint8 ``x`` on the card, as each launch on the TMA path does."""
+    t, m, r = x.shape
+    us = _lib().cim_mvm_encode_us(x.data_ptr(), t, m, r, reps)
+    if us < 0:
+        raise RuntimeError("cuTensorMapEncodeTiled refused x's tensor map")
+    return us
 
 
 def _launch(name: str, x: torch.Tensor, w: torch.Tensor, params,
@@ -245,11 +319,12 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, params,
     if x.device != w.device:
         raise KernelArgumentError(
             f"{name}: x_u on {x.device}, w_u on {w.device}")
-    # zeroed: the tensor-core kernel's blocks add their partial sums in
+    # zeroed: the wgmma kernel's blocks add their partial sums in
     out = torch.zeros((t, m, c), dtype=torch.int32, device=x.device)
     if out.numel() == 0:          # an empty grid is a launch error
         return out
-    plan = plan_launch(params, t, m, r, c)
+    plan = plan_launch(params, t, m, r, c, x.data_ptr() % 16 == 0,
+                       w.data_ptr() % 16 == 0)
     adc_max = min((1 << params.adc_bits) - 1, 2 ** 31 - 1)
     gx, gy, _ = plan.grid
     lib = _lib()
@@ -260,7 +335,8 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, params,
             plan.n_p, plan.n_s, params.dac_bits, params.cell_bits,
             plan.parallel_row, adc_max, x.element_size(), plan.bm, plan.bn,
             plan.kc, plan.groups_per_block, plan.phases_per_block, gx, gy,
-            plan.smem_bytes, stream)
+            plan.smem_bytes, plan.stages, plan.x_path == "tma",
+            plan.w_path == "tma", plan.resident, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError "
                            f"{err}")

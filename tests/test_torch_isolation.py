@@ -1,8 +1,10 @@
 """The port stands alone: no JAX, no ``repro``, no silent CPU.
 
 An AST scan finds no import of ``jax`` or ``repro`` in the port's
-package, in ``chip_smoke.py`` or in the port's example and tool scripts
-(``examples/*_torch.py``, ``tools/*_torch.py``); the package imports in
+package, in ``chip_smoke.py``, in the kernel's timing tools
+(``tools/cim_mvm_{timing,ablation}.py``) or in the port's example and
+tool scripts (``examples/*_torch.py``, ``tools/*_torch.py``); the
+package imports in
 a process where both are blocked, and so does every script, which gets
 through ``--help`` there (the host-only ones through ``main`` too, and
 the others refuse to run without a card); entry points asked for the default device (the LM
@@ -23,7 +25,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 SCRIPTS = sorted((ROOT / "examples").glob("*_torch.py")) \
     + sorted((ROOT / "tools").glob("*_torch.py"))
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"] + SCRIPTS
+    + [ROOT / "chip_smoke.py", ROOT / "tools" / "cim_mvm_ablation.py",
+       ROOT / "tools" / "cim_mvm_timing.py"] + SCRIPTS
 BANNED = ("jax", "jaxlib", "repro")
 
 

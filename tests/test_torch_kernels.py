@@ -4,9 +4,10 @@ The plain PyTorch version (``repro_torch.kernels.cim_mvm.ref``) is held
 to ``repro.kernels.cim_mvm.ref`` bit for bit (tolerance 0: the path is
 integer) on seeded random shapes, the committed goldens replay through
 the port's three entry points, and the route registry's auto and raise
-cases are pinned, and the tensor-core kernel's launch planner is checked
-on every main-path shape (shared memory, k-step padding, each term
-covered once, enough blocks).  The CUDA kernel itself is held to the
+cases are pinned, and the wgmma kernel's launch planner is checked on
+every main-path shape (shared memory, k-step padding, each term covered
+once, whole waves of blocks, the 16-byte rule that picks TMA or
+``cp.async`` for each operand, the ring's depth and residency).  The CUDA kernel itself is held to the
 plain version by the ``cuda``-marked tests, which run on a card only; a
 card host without JAX collects this file too and runs just the port's
 side.
@@ -283,7 +284,7 @@ def main_path():
 
 def _spans(plan: kernel.LaunchPlan):
     """(t, row tile, column tile, groups, phases) of every block, as
-    ``mma_kernel`` in csrc/cim_mvm.cu decodes its block index."""
+    ``wgmma_kernel`` in csrc/cim_mvm.cu decodes its block index."""
     gx, gy, gz = plan.grid
     for t in range(gz):
         for bx in range(gx):
@@ -298,9 +299,10 @@ def _spans(plan: kernel.LaunchPlan):
 
 def _check_plan(plan: kernel.LaunchPlan) -> None:
     """Shared memory fits; the groups tile R and each pads to whole
-    k-steps (as the kernel's ``group_chunks`` pads it); the blocks cover
-    each (crossbar tile, output tile, group, phase, slice) term exactly
-    once."""
+    k-steps (as the kernel's chunks pad it); the blocks cover each
+    (crossbar tile, output tile, group, phase, slice) term exactly once;
+    a wgmma plan's phase ranges are equal and its ring is the one its
+    load paths give, resident exactly when a whole group fits it."""
     assert plan.smem_bytes <= kernel.SMEM_LIMIT == 232_448
     pr = plan.parallel_row
     lens = [min(pr, plan.r - g * pr) for g in range(plan.n_groups)]
@@ -318,6 +320,11 @@ def _check_plan(plan: kernel.LaunchPlan) -> None:
         n_blocks += 1
     assert n_blocks == plan.blocks
     assert (seen == 1).all()
+    if plan.route == "wgmma":
+        assert plan.n_p % plan.phases_per_block == 0
+        assert (plan.stages, plan.smem_bytes) == kernel.ring_plan(
+            plan.x_path, plan.w_path)
+        assert plan.resident == (-(-pr // kernel.WG_KC) <= plan.stages)
 
 
 @pytest.mark.parametrize("which", ["dispatch", "calibration"])
@@ -327,18 +334,21 @@ def test_launch_plan_on_main_path_shapes(main_path, which):
     assert len(shapes) >= 10
     for shape in shapes:
         plan = kernel.plan_launch(params, *shape)
-        assert plan.route == "mma"
+        assert plan.route == "wgmma"
         _check_plan(plan)
+        # jia's 1152-row groups stay resident on every path
+        assert plan.resident, shape
         tiles_only = plan.t * plan.m_tiles * plan.c_tiles
-        if tiles_only >= kernel.TARGET_BLOCKS:      # no split needed
-            assert plan.group_splits == plan.phase_splits == 1, shape
-        else:
-            assert plan.blocks >= min(kernel.TARGET_BLOCKS, tiles_only
-                                      * plan.n_groups * plan.n_p), shape
+        # a split never adds a wave of blocks to the unsplit launch
+        waves = -(-plan.blocks // kernel.TARGET_BLOCKS)
+        assert waves <= -(-tiles_only * plan.n_groups * plan.n_p
+                          // kernel.TARGET_BLOCKS), shape
+        if tiles_only < kernel.TARGET_BLOCKS // 2:
+            assert plan.blocks > tiles_only, shape     # small: split
         if shape[1] in (4 * 49, 49) and shape[2] >= 2304:
-            # layer 4's 3x3 convolutions (7x7 outputs): a full card even
-            # with 16-32 output tiles
-            assert plan.blocks >= kernel.SM_COUNT, (shape, plan.grid)
+            # layer 4's 3x3 convolutions (7x7 outputs): a wave of blocks
+            # even with 8-16 output tiles
+            assert plan.blocks >= kernel.SM_COUNT - 4, (shape, plan.grid)
 
 
 def test_launch_plan_on_sweep_and_test_params():
@@ -347,25 +357,81 @@ def test_launch_plan_on_sweep_and_test_params():
     for t, m, r, c, p in cases:
         plan = kernel.plan_launch(p, t, m, r, c)
         assert plan.route == ("cuda_core" if kernel.operand_dtype(p)
-                              == torch.int32 else "mma")
+                              == torch.int32 else "wgmma")
         _check_plan(plan)
 
 
 def test_launch_plan_split_policy():
     jia = CimMvmParams(8, 8, 1, 1, 1152, 8)
-    # layer 4: 16 output tiles, every group and phase its own block
+    # layer 4: 8 output tiles, 4 groups, phases in 4 ranges: one wave
     plan = kernel.plan_launch(jia, 1, 196, 4608, 128)
-    assert plan.grid == (16, 32, 1) and plan.group_splits == 4
-    # the tiles alone fill the card: no split, one atomic add per output
-    plan = kernel.plan_launch(jia, 1, 12544, 576, 64)
-    assert plan.grid == (392, 1, 1)
-    # phases split before groups when both would do
+    assert plan.grid == (8, 16, 1) and plan.group_splits == 4
+    assert plan.phases_per_block == 2
+    # the LM block's 128 tiles fill the card: no split, one atomic add
+    plan = kernel.plan_launch(jia, 1, 1024, 854, 512)
+    assert plan.grid == (128, 1, 1)
+    # groups split before phases: two 1152-row groups, all phases a block
     plan = kernel.plan_launch(jia, 1, 784, 2304, 256)
-    assert plan.group_splits == 1 and plan.phase_splits > 1
+    assert plan.group_splits == 2 and plan.phase_splits == 1
+    # 196 tiles are 1.5 waves: two phase ranges make three even ones
+    plan = kernel.plan_launch(jia, 1, 12544, 576, 64)
+    assert plan.grid == (196, 2, 1)
     # int32 operands: the CUDA-core kernel, never split
     plan = kernel.plan_launch(CimMvmParams(8, 8, 3, 2, 16, 7), 2, 9, 100, 13)
     assert plan.route == "cuda_core" and plan.grid == (1, 1, 2)
     assert plan.group_splits == plan.phase_splits == 1
+
+
+@pytest.mark.parametrize("r,c,pr,x_aligned,w_aligned,want", [
+    (4608, 128, 1152, True, True, ("tma", "tma")),
+    (147, 64, 1152, True, True, ("cp.async", "tma")),       # R = 147
+    (512, 488, 1152, True, True, ("tma", "cp.async")),      # C = 488
+    (854, 512, 1152, True, True, ("cp.async", "tma")),      # the LM block
+    (300, 64, 100, True, True, ("cp.async", "tma")),        # pr % 16 != 0
+    (512, 128, 1152, False, True, ("cp.async", "tma")),     # x off the grid
+    (512, 128, 1152, True, False, ("tma", "cp.async")),     # w off the grid
+    (26, 32, 128, True, True, ("cp.async", "tma")),         # puma, R = 26
+    (128, 8, 128, True, True, ("tma", "cp.async")),         # puma, C = 8
+], ids=str)
+def test_launch_plan_load_paths_follow_the_16_byte_rule(
+        r, c, pr, x_aligned, w_aligned, want):
+    assert kernel.load_paths(r, c, pr, x_aligned, w_aligned) == want
+    p = CimMvmParams(8, 8, 1, 1, pr, 8)
+    plan = kernel.plan_launch(p, 1, 64, r, c, x_aligned, w_aligned)
+    assert (plan.x_path, plan.w_path) == want
+    _check_plan(plan)
+
+
+@pytest.mark.parametrize("paths", [("tma", "tma"), ("tma", "cp.async"),
+                                   ("cp.async", "tma"),
+                                   ("cp.async", "cp.async")], ids=str)
+def test_ring_fills_shared_memory(paths):
+    """As many stages as fit 232,448 bytes beside the plane buffers, at
+    least the 9 chunks of a 1152-row group."""
+    stages, smem = kernel.ring_plan(*paths)
+    stage = kernel.SLOT_BYTES["x", paths[0]] + kernel.SLOT_BYTES["w", paths[1]]
+    assert 9 <= stages <= kernel.MAX_STAGES
+    assert smem <= kernel.SMEM_LIMIT < smem + stage
+    assert kernel.RING_OFFSET >= 3 * 2 * kernel.PLANE_BYTES
+    assert kernel.RING_OFFSET % kernel.SMEM_ALIGN == 0
+
+
+@pytest.mark.parametrize("pr,resident", [(1152, True), (1408, True),
+                                         (2048, False), (128, True)])
+def test_launch_plan_streams_groups_longer_than_the_ring(pr, resident):
+    plan = kernel.plan_launch(CimMvmParams(8, 8, 1, 1, pr, 8), 1, 64, 4096,
+                              64)
+    assert plan.stages == 11 and plan.resident == resident
+    _check_plan(plan)
+
+
+@pytest.mark.parametrize("n_phases,n_s,want", [
+    (8, 8, (1, 8)), (4, 8, (2, 4)), (2, 8, (2, 4)), (1, 4, (2, 2)),
+    (1, 1, (2, 1)), (6, 8, (1, 8)), (3, 2, (2, 1))])
+def test_sweeps_keep_to_eight_live_pairs(n_phases, n_s, want):
+    sb, sweeps = kernel.sweep_shape(n_phases, n_s)
+    assert (sb, sweeps) == want
+    assert n_phases * sb <= 2 * kernel.WG_PAIRS and sweeps * sb >= n_s
 
 
 # ------------------------------------------------------------- on the card
@@ -387,6 +453,7 @@ def test_cuda_kernel_matches_plain_version(card, p):
         (1, 4, 512, 488), (2, 5, 600, 37),   # M < 16, C % 8 != 0
         (1, 196, 4608, 128),                 # most atomic adds on jia
         (1, 4500, 600, 128),                 # an unsplit plan
+        (2, 70, 256, 40), (1, 64, 224, 64),  # x by TMA, w by either path
     ]
     for shape in shapes:
         x, w = _operands(shape, p, seed=sum(shape))
