@@ -239,6 +239,8 @@ LAUNCH_PREFILL = (2, 4096)
 LAUNCH_DOTS_STEPS = 3
 LAUNCH_DECODE_B, LAUNCH_DECODE_STEPS = 1, 8
 LAUNCH_DRYRUN_ARCH = "qwen1.5-4b"
+DRYRUN_WORKERS = 6            # phase 10 (e): the cells' processes
+LAUNCH_SPMD_PREFILL = (2, 4096)   # phase 10 (f): (B, S) of the prefill
 EXAMPLES_TRAIN_STEPS = 200    # examples/train_lm_torch.py's default
 
 
@@ -2063,26 +2065,100 @@ def _launch_decode_cell():
     return shape, {k: float(np.median(v)) for k, v in ms.items()}, bound
 
 
+#: the JAX package's dry run of qwen1.5-4b (``repro.launch.dryrun.run_cell``
+#: under jax 0.9.0, XLA's CPU compile for 512 host devices): collectives
+#: and wire bytes per device by kind, counts from a compile, no times
+REF_DRYRUN = {
+    ("decode_32k", "16x16"): (482, {"all-reduce": 18681600.0,
+                                    "all-gather": 13774080.0}),
+    ("train_4k", "16x16"): (8163, {"all-gather": 583920870144.0,
+                                   "collective-permute": 2097152.0,
+                                   "all-reduce": 1588250542501.0,
+                                   "all-to-all": 1006632960.0}),
+    ("prefill_32k", "16x16"): (604, {"all-gather": 95969574720.0,
+                                     "all-to-all": 1258291200.0,
+                                     "collective-permute": 1677742080.0,
+                                     "all-reduce": 50331686400.0}),
+    ("decode_32k", "2x16x16"): (482, {"all-reduce": 9340800.0,
+                                      "all-gather": 6887040.0}),
+    ("train_4k", "2x16x16"): (8055, {"collective-permute": 55745536.0,
+                                     "all-gather": 594397862912.0,
+                                     "all-reduce": 1587421880869.0,
+                                     "all-to-all": 1509949440.0}),
+    ("prefill_32k", "2x16x16"): (604, {"all-gather": 53187104160.0,
+                                       "all-to-all": 629145600.0,
+                                       "collective-permute": 838871040.0,
+                                       "all-reduce": 25165843200.0}),
+}
+
+#: phase 10 (e)'s child: the dry run of both plans (its cells in
+#: ``DRYRUN_WORKERS`` processes), then (d)'s cell on one device
+_DRYRUN_CHILD = """
+import dataclasses, json, sys
+from repro_torch.configs import get_config, reduced
+from repro_torch.configs.base import SHAPES
+from repro_torch.launch import dryrun
+from repro_torch.launch.steps import ONE_DEVICE
+arch, out, workers, small, b = sys.argv[1:6]
+rc = dryrun.main(["--arch", arch, "--mesh", "both", "--out", out,
+                  "--workers", workers] + (["--reduced"] if small == "1"
+                                           else []))
+cfg = get_config(arch)
+cfg = reduced(cfg) if small == "1" else cfg
+shape = dataclasses.replace(SHAPES["decode_32k"], global_batch=int(b))
+recs = [dryrun.run_cell(cfg, shape, ONE_DEVICE, optimized=opt)
+        for opt in (False, True)]
+print(json.dumps({"rc": rc, "one_device": recs}))
+"""
+
+
 def _launch_dryrun(shape, decode_ms):
-    """Phase 10 (e): the dry run of one architecture on meta over its
-    shapes on the 16x16 mesh plan, then (d)'s cell on one device beside
-    its measured step."""
+    """Phase 10 (e): the SPMD dry run of one architecture's cells on the
+    16x16 and 2x16x16 plans (DTensor programs on meta over a fake process
+    group, in a child process: this process's group is NCCL's), beside
+    the JAX package's counts; then (d)'s cell on one device beside its
+    measured step."""
+    import os
     import tempfile
-    from repro_torch.configs import get_config
-    from repro_torch.launch import dryrun
-    from repro_torch.launch.steps import ONE_DEVICE
     with tempfile.TemporaryDirectory() as wd:
+        out = pathlib.Path(wd) / "dryrun.json"
         t0 = time.perf_counter()
-        rc = dryrun.main(["--arch", LAUNCH_DRYRUN_ARCH, "--mesh", "single",
-                          "--out", str(pathlib.Path(wd) / "dryrun.json")]
-                         + (["--reduced"] if LM_REDUCED else []))
+        child = subprocess.run(
+            [sys.executable, "-c", _DRYRUN_CHILD, LAUNCH_DRYRUN_ARCH,
+             str(out), str(DRYRUN_WORKERS), "1" if LM_REDUCED else "0",
+             str(shape.global_batch)], capture_output=True, text=True,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            timeout=900)
         took = time.perf_counter() - t0
-    print(f"[launch] (e) dry run of {LAUNCH_DRYRUN_ARCH} on meta, 16x16 "
-          f"mesh plan: exit {rc} in {took:.1f} s")
-    assert rc == 0
-    cfg = _lm_base() if LM_REDUCED else get_config(LAUNCH_DRYRUN_ARCH)
-    for name, opt in (("default", False), ("OPTIMIZED", True)):
-        rec = dryrun.run_cell(cfg, shape, ONE_DEVICE, optimized=opt)
+        if child.returncode:
+            print(child.stdout[-4000:] + child.stderr[-4000:])
+        assert child.returncode == 0, child.returncode
+        res = json.loads(child.stdout.strip().splitlines()[-1])
+        recs = json.loads(out.read_text())
+    print(f"[launch] (e) SPMD dry run of {LAUNCH_DRYRUN_ARCH}: {len(recs)} "
+          f"cells on the 16x16 and 2x16x16 plans (DTensor programs on meta, "
+          f"{DRYRUN_WORKERS} processes), exit {res['rc']} in {took:.1f} s")
+    assert res["rc"] == 0 and len(recs) == 6
+    for rec in sorted(recs, key=lambda r: (r["mesh"], r["shape"])):
+        assert rec["status"] == "ok", rec
+        ref = REF_DRYRUN.get((rec["shape"], rec["mesh"]))
+        kinds = ", ".join(f"{k} {v / 1e9:.6g}" for k, v in
+                          sorted(rec["collectives"].items()))
+        line = (f"[launch] (e) {rec['arch']}:{rec['shape']} on {rec['mesh']} "
+                f"({rec['total_s']} s): {rec['collective_count']} "
+                f"collectives, {rec['collective_bytes'] / 1e9:.6g} GB on the "
+                f"wire per device ({kinds} GB), collective_s "
+                f"{rec['collective_s']:.6g} s over {rec['links']}; compute_s "
+                f"{rec['compute_s']:.6g} s, memory_s {rec['memory_s']:.6g} "
+                f"s, {rec['bottleneck']}-bound; replicated ops "
+                f"{rec['replicated_ops'] or 'none'}")
+        if ref and not LM_REDUCED:
+            line += (f"; the JAX package's CPU compile: {ref[0]} "
+                     f"collectives, " + ", ".join(
+                         f"{k} {v / 1e9:.6g}" for k, v in
+                         sorted(ref[1].items())) + " GB")
+        print(line)
+    for name, rec in zip(("default", "OPTIMIZED"), res["one_device"]):
         assert rec["status"] == "ok", rec
         print(f"[launch] (e) {rec['arch']}:{rec['shape']} B="
               f"{shape.global_batch} on one device, {name}: counted "
@@ -2091,6 +2167,92 @@ def _launch_dryrun(shape, decode_ms):
               f"{1e3 * rec['compute_s']:.4f} ms; measured step (d) "
               f"{decode_ms[name]:.3f} ms = "
               f"{decode_ms[name] / (1e3 * rec['memory_s']):.2f}x memory_s")
+
+
+def _spmd_pair(cell, plain_args, spmd_args, steps_at=None):
+    """``cell.fn`` on plain and on DTensor arguments: (plain ms, DTensor
+    ms, DTensor ms of its first call), each call to the card's
+    completion, the logits bit-equal at every call."""
+    import torch
+    from repro_torch.models.layers import tree_leaves
+    calls = steps_at or [None, None]
+    ms = {"plain": [], "spmd": []}
+    for i, at in enumerate(calls):
+        for kind, args in (("plain", plain_args), ("spmd", spmd_args)):
+            if at is not None:
+                args = args[:-1] + (at,)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = cell.fn(*args)
+            torch.cuda.synchronize()
+            ms[kind].append(1e3 * (time.perf_counter() - t0))
+            if kind == "plain":
+                want = out
+        got = [t.full_tensor() for t in tree_leaves(out)]
+        for w, g in zip(tree_leaves(want), got):
+            assert torch.equal(w, g), (cell.name, i)
+        assert torch.isfinite(got[0]).all()
+    return ms
+
+
+def _launch_spmd():
+    """Phase 10 (f): qwen1.5-4b's prefill and decode cells as DTensor
+    programs on a 1x1 CUDA ``DeviceMesh`` (NCCL at world size 1) beside
+    the plain cells on the same arguments, default and ``OPTIMIZED``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import SHAPES, ShapeSpec
+    from repro_torch.launch import sharding as shd, steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.perfopts import OPTIMIZED
+    from torch.distributed.tensor import distribute_tensor
+    cfg = _lm_base()
+    mesh = make_host_mesh(device=DEV)
+    assert mesh.size == 1, mesh
+    dm = mesh.device_mesh()
+    try:
+        b, s = LAUNCH_SPMD_PREFILL
+        pre = ShapeSpec("prefill_4k", "prefill", s, b)
+        dec = dataclasses.replace(SHAPES["decode_32k"],
+                                  global_batch=LAUNCH_DECODE_B)
+        cell = steps.build_cell(cfg, dec, mesh)
+        plain = cell.materialize(DEV, torch.Generator(device=DEV)
+                                 .manual_seed(11))
+        spmd = cell.materialize(DEV, torch.Generator(device=DEV)
+                                .manual_seed(11), mesh=dm)
+        tokens = torch.randint(0, cfg.vocab, (b, s), device=DEV,
+                               generator=torch.Generator(device=DEV)
+                               .manual_seed(12), dtype=torch.int32)
+        last = dec.seq_len - 1
+        with torch.no_grad():
+            for name, perf in (("default", None), ("OPTIMIZED", OPTIMIZED)):
+                pc = steps.build_cell(cfg, pre, mesh, perf=perf)
+                placed = distribute_tensor(tokens, dm, shd.placements(
+                    pc.in_shardings[1]["tokens"], mesh))
+                p_ms = _spmd_pair(pc, (plain[0], {"tokens": tokens}),
+                                  (spmd[0], {"tokens": placed}))
+                del pc
+                torch.cuda.empty_cache()
+                dc = steps.build_cell(cfg, dec, mesh, perf=perf)
+                at = [last] + [last - LAUNCH_DECODE_STEPS + 1 + i
+                               for i in range(LAUNCH_DECODE_STEPS)]
+                d_ms = _spmd_pair(dc, plain, spmd, steps_at=at)
+                print(f"[launch] (f) {cfg.name} on a 1x1 CUDA DeviceMesh "
+                      f"(NCCL, world size 1), {name}: prefill B={b} S={s} "
+                      f"DTensor {p_ms['spmd'][1]:.1f} ms (first call "
+                      f"{p_ms['spmd'][0]:.1f} ms) vs plain "
+                      f"{p_ms['plain'][1]:.1f} ms; {dec.name} (S = "
+                      f"{dec.seq_len}, B = {dec.global_batch}) "
+                      f"{LAUNCH_DECODE_STEPS} steps after a warm-up: DTensor "
+                      f"median {np.median(d_ms['spmd'][1:]):.1f} ms vs plain "
+                      f"{np.median(d_ms['plain'][1:]):.1f} ms a step; "
+                      f"logits and caches bit-equal at every call; replicated "
+                      f"ops {dc.replicated_ops or 'none'}")
+        print(f"[launch] (f) card: {gpu_line()}")
+    finally:
+        dist.destroy_process_group()
 
 
 def phase_launch(serving, full_remat):
@@ -2121,6 +2283,10 @@ def phase_launch(serving, full_remat):
     t0 = time.perf_counter()
     _launch_dryrun(shape, decode_ms)
     took["e"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _launch_spmd()
+    took["f"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
     print("[launch] seconds: " + ", ".join(f"({k}) {v:.1f}"
                                            for k, v in took.items()))
     launches = dict(kernel.LAUNCHES)

@@ -35,7 +35,10 @@ _BF16 = "bfloat16"
 
 
 def _to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
-    """(the array npz stores, the manifest's dtype) of one leaf."""
+    """(the array npz stores, the manifest's dtype) of one leaf (a
+    DTensor's whole value)."""
+    if hasattr(t, "full_tensor"):       # a DTensor
+        t = t.full_tensor()
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.dtype("V2")), _BF16
@@ -125,12 +128,32 @@ def restore_checkpoint(path, like: Any) -> Tuple[Any, Dict]:
 
 
 def restore_on_device(path, like: Any, device) -> Tuple[Any, Dict]:
-    """``restore_checkpoint`` with every leaf placed on ``device``: the
-    counterpart of the reference's ``restore_resharded``, for one card.
-    The checkpoint holds logical arrays, so it may come from any run."""
+    """``restore_checkpoint`` with every leaf placed on ``device``, for one
+    card (``restore_resharded`` places it on a mesh).  The checkpoint
+    holds logical arrays, so it may come from any run."""
     tree, extra = restore_checkpoint(path, like)
     leaves = [t.to(device) for t in tree_leaves(tree)]
     return tree_unflatten(like, leaves), extra
+
+
+def restore_resharded(path, like: Any, shardings: Any, mesh,
+                      device_mesh=None) -> Tuple[Any, Dict]:
+    """Elastic restore: every leaf placed as a DTensor on ``mesh`` (a
+    ``launch.mesh.Mesh`` with devices) by its partition spec in
+    ``shardings`` (a tree of specs matching ``like``), whatever mesh
+    wrote the checkpoint; ``device_mesh`` defaults to
+    ``mesh.device_mesh()``.  The reference's ``restore_resharded``."""
+    from torch.distributed.tensor import distribute_tensor
+    from ..launch import sharding as shd
+    if not mesh.devices:
+        raise ValueError(f"the {mesh.name} plan has no devices to restore "
+                         "onto")
+    dm = device_mesh if device_mesh is not None else mesh.device_mesh()
+    tree, extra = restore_checkpoint(path, like)
+    placed = shd.tree_zip(lambda t, spec: distribute_tensor(
+        t.to(mesh.devices[0]), dm, shd.placements(spec, mesh)),
+        tree, shardings)
+    return placed, extra
 
 
 class CheckpointManager:

@@ -1,25 +1,42 @@
-"""Device meshes: named axes and their sizes.
+"""Device meshes: named axes and their sizes, and the
+``torch.distributed.DeviceMesh`` behind them.
 
-A port of ``repro.launch.mesh``.  The port has no SPMD partitioner, so a
-mesh here is a description, not a ``torch.distributed.DeviceMesh`` (which
-needs a process group and buys nothing on one card): the sharding rules
-(``launch.sharding``) and the sharding levers (``PerfOpts.mesh``) read
-its axis names and sizes, and the dry run (``launch.dryrun``) divides a
-cell's bytes and operations over it.  ``make_production_mesh`` gives the
-reference's production meshes as such plans: 16x16 = 256 chips
-("data", "model"), or 2 pods x 256 = 512 ("pod", "data", "model"), the
-pod axis pure data parallelism.  ``make_host_mesh`` spans the devices
-this host has.
+A port of ``repro.launch.mesh``.  A ``Mesh`` names its axes and sizes:
+the sharding rules (``launch.sharding``) and the sharding levers
+(``PerfOpts.mesh``) read them.  ``Mesh.device_mesh`` builds the
+``DeviceMesh`` with those axis names that a cell runs on as a DTensor
+program (``launch.steps``):
+
+  * a plan (``devices`` empty, as ``make_production_mesh`` gives)
+    spans the first ``size`` ranks of a fake process group
+    (``torch.testing._internal.distributed.fake_pg``, which issues no
+    communication) with this process as rank 0; its local shards live
+    on the ``meta`` device, so the reference's production meshes,
+    16x16 = 256 ("data", "model") and 2 pods x 256 = 512 ("pod",
+    "data", "model", the pod axis pure data parallelism), need no
+    devices.  One fake group of ``PLAN_WORLD`` ranks holds both;
+  * a host mesh (``make_host_mesh``) spans its real devices: NCCL on
+    the card, gloo on the CPU, started at world size 1 over an
+    in-process store when no group exists, or the caller's group when
+    its size is the mesh's.
+
+A process has one default group, so ``plan_group`` starts the fake one
+and destroys it on leaving, and refuses to start where another group
+is live.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
 from ..kernels.backend import resolve_device
+
+#: ranks of the fake group that holds every production plan
+PLAN_WORLD = 512
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +67,74 @@ class Mesh:
     @property
     def name(self) -> str:
         return "x".join(map(str, self.axis_sizes))
+
+    def device_mesh(self):
+        """The ``torch.distributed.DeviceMesh`` of this mesh, with its
+        axis names.  A plan needs the fake group (``plan_group``) and
+        takes the "cuda" device type of the cluster it plans (a "cpu"
+        mesh turns DTensor's all-to-alls into all-gathers; a "meta" one
+        has no device handle for its sharding propagation); a host mesh
+        starts its own group where none exists."""
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+        ranks = torch.arange(self.size).reshape(self.axis_sizes)
+        if not self.devices:
+            if not dist.is_initialized() or \
+                    dist.get_backend() != dist.Backend.FAKE:
+                raise RuntimeError(
+                    f"the {self.name} plan needs the fake process group: "
+                    "build it inside launch.mesh.plan_group()")
+            if dist.get_world_size() < self.size:
+                raise RuntimeError(f"the fake group has "
+                                   f"{dist.get_world_size()} ranks, the "
+                                   f"{self.name} plan needs {self.size}")
+            return DeviceMesh("cuda", ranks, mesh_dim_names=self.axis_names)
+        kind = torch.device(self.devices[0]).type
+        if not dist.is_initialized():
+            if self.size != 1:
+                raise RuntimeError(
+                    f"a {self.name} host mesh needs one process per "
+                    "device: start its group (torch.distributed) first")
+            if kind == "cuda":
+                torch.cuda.set_device(torch.device(self.devices[0]))
+            dist.init_process_group("nccl" if kind == "cuda" else "gloo",
+                                    store=dist.HashStore(), rank=0,
+                                    world_size=1)
+        elif dist.get_world_size() != self.size:
+            raise RuntimeError(f"the process group has "
+                               f"{dist.get_world_size()} ranks, the "
+                               f"{self.name} mesh {self.size}")
+        return DeviceMesh(kind, ranks, mesh_dim_names=self.axis_names)
+
+
+@contextlib.contextmanager
+def plan_group(world: int = PLAN_WORLD) -> Iterator[None]:
+    """A fake process group of ``world`` ranks, this process rank 0,
+    for the plans' ``DeviceMesh``es; destroyed on leaving.  Inside an
+    enclosing one it uses that group.  Raises where another group is
+    live, or where this torch lacks the fake group."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        if dist.get_backend() == dist.Backend.FAKE and \
+                dist.get_world_size() >= world:
+            yield                       # an enclosing plan_group's
+            return
+        raise RuntimeError(
+            f"a {dist.get_backend()} process group is live: a plan's fake "
+            "group needs a process of its own")
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError(
+            f"torch {torch.__version__} has no fake process group "
+            "(torch.testing._internal.distributed.fake_pg): the SPMD dry "
+            "run cannot build a plan") from e
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

@@ -12,6 +12,10 @@ Train:   FSDP x TP — reduction dims shard on "data", model dims on
          params (ZeRO-3-like memory).
 Serve:   params shard on "model" only; batch on ("pod","data");
          KV-cache sequence on "model".
+
+``placements`` turns a partition spec into the DTensor placements of a
+tensor on the mesh's ``DeviceMesh`` (``Mesh.device_mesh``), and
+``tree_placements`` a tree of specs.
 """
 from __future__ import annotations
 
@@ -103,6 +107,21 @@ def tree_shardings(specs_tree: Any, axes_tree: Any, mesh: Mesh,
     return type(specs_tree)(out)
 
 
+def tree_zip(fn, specs_tree: Any, shardings_tree: Any) -> Any:
+    """``fn(leaf, spec)`` over a tree whose leaves are not tuples (a
+    ``TensorSpec`` or tensor tree) and its matching tree of partition
+    specs, keeping the first tree's structure."""
+    if isinstance(specs_tree, dict):
+        return {k: tree_zip(fn, v, shardings_tree[k])
+                for k, v in specs_tree.items()}
+    if isinstance(specs_tree, (tuple, list)):
+        out = [tree_zip(fn, s, p) for s, p in zip(specs_tree, shardings_tree)]
+        if hasattr(specs_tree, "_fields"):      # a NamedTuple
+            return type(specs_tree)(*out)
+        return type(specs_tree)(out)
+    return fn(specs_tree, shardings_tree)
+
+
 def batch_sharding(mesh: Mesh, ndim: int, batch_dim: int = 0) -> Spec:
     parts = [None] * ndim
     ax = _batch_axes(mesh)
@@ -112,6 +131,46 @@ def batch_sharding(mesh: Mesh, ndim: int, batch_dim: int = 0) -> Spec:
 
 def replicated(mesh: Mesh) -> Spec:
     return ()
+
+
+def placements(spec: Spec, mesh: Mesh) -> tuple:
+    """The DTensor placements, one per mesh axis, of a tensor under the
+    partition spec ``spec``: ``Shard(d)`` on every mesh axis that entry
+    ``d`` names, ``Replicate()`` on the rest.  A dim over an axis tuple
+    such as ``("pod", "data")`` is split by its axes major to minor, as
+    JAX splits it, which is DTensor's order when the tuple follows the
+    mesh's axis order (the only order ``spec_for`` makes)."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = [Replicate()] * len(mesh.axis_names)
+    for d, entry in enumerate(spec):
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        idx = [mesh.axis_names.index(a) for a in axes if a is not None]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: the axes of dim {d} are not in "
+                             f"the mesh's order {mesh.axis_names}")
+        for i in idx:
+            if out[i] != Replicate():
+                raise ValueError(f"spec {spec}: mesh axis "
+                                 f"{mesh.axis_names[i]!r} used twice")
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def local_shape(shape: Tuple[int, ...], spec: Spec,
+                mesh: Mesh) -> Tuple[int, ...]:
+    """The shape of one device's shard of a ``shape`` tensor under
+    ``spec``; raises where an assignment does not divide (``spec_for``
+    drops those)."""
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        for ax in entry if isinstance(entry, tuple) else (entry,):
+            if ax is None:
+                continue
+            if out[d] % mesh.shape[ax]:
+                raise ValueError(f"dim {d} of {shape} does not split "
+                                 f"over {ax!r} ({mesh.shape[ax]})")
+            out[d] //= mesh.shape[ax]
+    return tuple(out)
 
 
 def tree_shard_bytes(specs_tree: Any, shardings_tree: Any, mesh: Mesh) -> int:

@@ -8,9 +8,13 @@ A port of ``repro.launch.steps``.  Cells:
   decode_* / long_* -> ``lm.decode_step`` (one new token against the
                cache)
 
-A cell runs on one device (the card, the CPU, or "meta" for the dry
-run) whatever its mesh: the mesh sets ``PerfOpts.mesh`` and the
-partition specs, which say how a partitioner would split the cell.
+A cell runs on plain tensors on one device (the card, the CPU, or
+"meta"), or as a DTensor program on its mesh's ``DeviceMesh``
+(``Cell.materialize(..., mesh=...)``): its leaves placed by their
+partition specs, its sharding constraints redistributions, the ops
+DTensor cannot partition run on replicated operands
+(``models.layers.ReplicateUnpropagated``) and named in
+``Cell.replicated_ops``.
 The training step is split where the trainer needs it split:
 ``loss_and_grads`` leaves the state untouched, so a caller can look at
 the loss before ``apply_update`` changes the params and moments in
@@ -26,7 +30,8 @@ import torch
 
 from ..configs.base import ModelConfig, ShapeSpec
 from ..models import lm
-from ..models.layers import (TensorSpec, init_from_specs, tree_leaves,
+from ..models.layers import (ReplicateUnpropagated, TensorSpec,
+                             init_from_specs, tree_leaves,
                              tree_map, tree_unflatten)
 from ..models.perfopts import PerfOpts, use_perf_opts
 from ..optim import adamw
@@ -64,12 +69,29 @@ def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 
 def _split(batch: Dict[str, torch.Tensor], mb: int, i: int):
     """Microbatch ``i`` of ``mb``: rows i*B/mb .. (i+1)*B/mb of the batch
-    dim (dim 1 of ``positions3``, dim 0 of the rest)."""
+    dim (dim 1 of ``positions3``, dim 0 of the rest).
+
+    A DTensor batch split over devices along that dim gives each device
+    the i-th block of its own rows instead, as data-parallel gradient
+    accumulation does, so a microbatch needs no collective; on one
+    device the two are the same rows."""
+    from torch.distributed.tensor import DTensor, Shard
     out = {}
     for k, v in batch.items():
         dim = 1 if k == "positions3" else 0
         n = v.shape[dim] // mb
-        out[k] = v.narrow(dim, i * n, n)
+        if isinstance(v, DTensor) and Shard(dim) in v.placements \
+                and v.to_local().shape[dim] % mb == 0:
+            local = v.to_local()
+            nl = local.shape[dim] // mb
+            shape = list(v.shape)
+            shape[dim] = n
+            out[k] = DTensor.from_local(
+                local.narrow(dim, i * nl, nl), v.device_mesh, v.placements,
+                run_check=False, shape=torch.Size(shape),
+                stride=torch.empty(shape, device="meta").stride())
+        else:
+            out[k] = v.narrow(dim, i * n, n)
     return out
 
 
@@ -107,8 +129,7 @@ def loss_and_grads(params: Any, cfg: ModelConfig,
     else:
         loss = torch.zeros((), dtype=torch.float32,
                            device=leaves[0].device)
-        grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                 for p in leaves]
+        grads = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
         for i in range(mb):
             li, gi = micro(_split(batch, mb, i))
             loss = loss + li
@@ -210,21 +231,79 @@ class Cell:
     in_shardings: Tuple[Any, ...]
     out_shardings: Any
     mesh: Mesh
+    #: the ops run replicated on a ``DeviceMesh`` (``ReplicateUnpropagated``),
+    #: by name, with how often, over every call of ``fn``
+    replicated_ops: Dict[str, int] = dataclasses.field(default_factory=dict)
 
-    def materialize(self, device, generator: Optional[torch.Generator] = None
-                    ) -> Tuple[Any, ...]:
+    def materialize(self, device, generator: Optional[torch.Generator] = None,
+                    mesh=None) -> Tuple[Any, ...]:
         """``args`` as tensors on ``device``: uninitialised on "meta",
         else drawn as ``lm.init_params`` draws parameters (scaled-normal
-        floats, zero integers) from ``generator``, on that device."""
-        def make(tree):
+        floats, zero integers) from ``generator``, on that device.
+
+        With ``mesh`` (the ``DeviceMesh`` of ``self.mesh``) every leaf is
+        a DTensor placed by its partition spec: on "meta" only this
+        device's shard is made; drawn leaves are drawn whole, in the
+        same order, and distributed."""
+        def make(tree, specs):
             if isinstance(tree, int):
                 return tree
-            if torch.device(device).type == "meta":
+            meta = torch.device(device).type == "meta"
+            if meta and mesh is not None:
+                return shd.tree_zip(lambda t, spec: placed_zeros(
+                    t, spec, self.mesh, mesh, "meta"), tree, specs)
+            if meta:
                 return tree_map(lambda t: torch.empty(
                     t.shape, dtype=t.dtype, device="meta"), tree)
             with torch.no_grad():
-                return init_from_specs(tree, generator, device)
-        return tuple(make(a) for a in self.args)
+                full = init_from_specs(tree, generator, device)
+            if mesh is None:
+                return full
+            from torch.distributed.tensor import distribute_tensor
+            return shd.tree_zip(lambda t, spec: distribute_tensor(
+                t, mesh, shd.placements(spec, self.mesh)), full, specs)
+        return tuple(make(a, s) for a, s in zip(self.args, self.in_shardings))
+
+
+def placed_zeros(leaf: TensorSpec, spec, plan: Mesh, dmesh, device):
+    """A zero DTensor of ``leaf``'s shape placed by ``spec``: only this
+    device's shard is made, on ``device``."""
+    from torch.distributed.tensor import DTensor
+    local = torch.zeros(shd.local_shape(tuple(leaf.shape), spec, plan),
+                        dtype=leaf.dtype, device=device)
+    full = torch.empty(leaf.shape, dtype=leaf.dtype, device="meta")
+    return DTensor.from_local(local, dmesh, shd.placements(spec, plan),
+                              run_check=False, shape=full.shape,
+                              stride=full.stride())
+
+
+def _device_mesh(tree):
+    """The ``DeviceMesh`` of a tree of DTensors; None for plain tensors."""
+    from torch.distributed.tensor import DTensor
+    leaf = tree_leaves(tree)[0]
+    return leaf.device_mesh if isinstance(leaf, DTensor) else None
+
+
+def _spmd(fn: Callable, replicated_ops: Dict[str, int]) -> Callable:
+    """``fn``, which on DTensor arguments runs under
+    ``ReplicateUnpropagated`` and adds the ops it replicated to
+    ``replicated_ops``; on plain tensors it runs as it is."""
+    def run(*args):
+        if _device_mesh(args[0]) is None:
+            return fn(*args)
+        with ReplicateUnpropagated() as rep:
+            try:
+                return fn(*args)
+            finally:
+                for k, v in rep.ops.items():
+                    replicated_ops[k] = replicated_ops.get(k, 0) + v
+    return run
+
+
+def _cell(name, fn, *rest) -> Cell:
+    """A ``Cell`` whose ``fn`` also runs on DTensors (``_spmd``)."""
+    ops: Dict[str, int] = {}
+    return Cell(name, _spmd(fn, ops), *rest, replicated_ops=ops)
 
 
 def build_cell(cfg: ModelConfig, shape: ShapeSpec,
@@ -259,11 +338,11 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec,
             with use_perf_opts(perf):
                 return train_step(params, opt_state, batch, cfg, lr=lr,
                                   microbatches=mb)
-        return Cell(name, train_cell, (p_specs, o_specs, b_specs),
-                    (p_shard, o_shard, b_shard),
-                    (p_shard, o_shard, {"loss": shd.replicated(mesh),
-                                        "grad_norm": shd.replicated(mesh)}),
-                    mesh)
+        return _cell(name, train_cell, (p_specs, o_specs, b_specs),
+                     (p_shard, o_shard, b_shard),
+                     (p_shard, o_shard, {"loss": shd.replicated(mesh),
+                                         "grad_norm": shd.replicated(mesh)}),
+                     mesh)
 
     b, s = shape.global_batch, shape.seq_len
     c_rules = shd.cache_rules(cfg, mesh, kind)
@@ -276,15 +355,22 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec,
 
     if shape.kind == "prefill":
         def prefill_cell(params, batch):
+            dm = _device_mesh(params)
+
+            def placed(specs):      # the cache, placed by its specs
+                dev = tree_leaves(params)[0].to_local().device
+                return shd.tree_zip(lambda t, sp: placed_zeros(
+                    t, sp, mesh, dm, dev), specs, c_shard)
             with use_perf_opts(perf):
-                return lm.prefill(params, cfg, batch)
-        return Cell(name, prefill_cell, (p_specs, b_specs),
-                    (p_shard, b_shard), (logits_shard, c_shard), mesh)
+                return lm.prefill(params, cfg, batch,
+                                  alloc=placed if dm is not None else None)
+        return _cell(name, prefill_cell, (p_specs, b_specs),
+                     (p_shard, b_shard), (logits_shard, c_shard), mesh)
 
     def decode_cell(params, cache, batch, pos):
         with use_perf_opts(perf):
             return lm.decode_step(params, cfg, cache, batch, pos)
     # the last slot: the step attends over the whole cache
-    return Cell(name, decode_cell, (p_specs, c_specs, b_specs, s - 1),
-                (p_shard, c_shard, b_shard, shd.replicated(mesh)),
-                (logits_shard, c_shard), mesh)
+    return _cell(name, decode_cell, (p_specs, c_specs, b_specs, s - 1),
+                 (p_shard, c_shard, b_shard, shd.replicated(mesh)),
+                 (logits_shard, c_shard), mesh)

@@ -18,6 +18,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves as _pt_leaves
 
 from .perfopts import current
 
@@ -360,17 +362,50 @@ def cache_update(cache: torch.Tensor, new: torch.Tensor,
     """
     n = new.shape[1]
     start = min(max(int(pos), 0), cache.shape[1] - n)
-    cache[:, start:start + n] = new.to(cache.dtype)
+    write_seq(cache, new, start)
     return cache
+
+
+def write_seq(dst: torch.Tensor, src: torch.Tensor, start: int) -> None:
+    """``dst[:, start:start + n] = src`` (n = ``src.shape[1]``), in
+    ``dst``'s dtype, in place.
+
+    A DTensor ``dst`` whose axis 1 is sharded (a cache sharded over its
+    sequence) takes the write shard by shard: each device writes the
+    part of [start, start + n) that its shard holds, from ``src``
+    brought to ``dst``'s placements on the other axes, as GSPMD
+    partitions a dynamic-update-slice.  (DTensor would gather the whole
+    of ``dst`` to slice it, and write the gathered copy.)"""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(dst, DTensor) or \
+            Shard(1) not in dst.placements:
+        dst[:, start:start + src.shape[1]] = src.to(dst.dtype)
+        return
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = dst.device_mesh
+    place = [Replicate() if p == Shard(1) else p for p in dst.placements]
+    if not isinstance(src, DTensor):
+        src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    src = src.redistribute(mesh, place).to_local()
+    shape, offset = compute_local_shape_and_global_offset(
+        dst.shape, mesh, dst.placements)
+    lo = max(start, offset[1])
+    hi = min(start + src.shape[1], offset[1] + shape[1])
+    if lo < hi:
+        local = dst._local_tensor
+        local[:, lo - offset[1]:hi - offset[1]] = \
+            src[:, lo - start:hi - start].to(dst.dtype)
 
 
 def with_sharding_constraint(t: torch.Tensor, mesh,
                              spec: Tuple) -> torch.Tensor:
-    """``jax.lax.with_sharding_constraint`` for a cell that runs on one
-    device: ``spec`` (a partition-spec tuple over the axes of ``mesh``,
-    a ``launch.mesh.Mesh``) is checked against ``t`` and ``mesh``, and
-    ``t`` comes back unchanged, as a constraint leaves the data where
-    one device holds every shard.  The port has no SPMD partitioner."""
+    """``jax.lax.with_sharding_constraint``: ``spec`` (a partition-spec
+    tuple over the axes of ``mesh``, a ``launch.mesh.Mesh``) is checked
+    against ``t`` and ``mesh``; a DTensor is redistributed to the spec's
+    placements on its ``DeviceMesh``, and a plain tensor, which one
+    device holds whole, comes back unchanged."""
     if len(spec) > t.dim():
         raise ValueError(f"spec {spec} has more entries than a "
                          f"{t.dim()}-d tensor has dims")
@@ -378,7 +413,282 @@ def with_sharding_constraint(t: torch.Tensor, mesh,
         for ax in part if isinstance(part, tuple) else (part,):
             if ax is not None and ax not in mesh.shape:
                 raise ValueError(f"spec {spec}: the mesh has no axis {ax!r}")
-    return t
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor):
+        return t
+    from ..launch.sharding import placements
+    dm = t.device_mesh
+    if tuple(dm.mesh_dim_names) != tuple(mesh.axis_names):
+        raise ValueError(f"the tensor's mesh has axes {dm.mesh_dim_names}, "
+                         f"the spec's {mesh.axis_names}")
+    return t.redistribute(dm, placements(spec, mesh))
+
+
+class ReplicateUnpropagated(TorchDispatchMode):
+    """Runs a DTensor program through the ops DTensor has no sharding
+    for: where sharding propagation refuses an aten op (no strategy, or
+    a view it cannot split evenly, such as 20 heads over 16 devices),
+    the op's DTensor operands are replicated and it runs again, as GSPMD
+    rematerializes a tensor it cannot reshard ("involuntary full
+    rematerialization"), and runs on every device's whole copy; the
+    gathers are collectives like any other.  A view DTensor would get
+    wrong reshards first (``_view_ready``); one that a shard's strides
+    refuse (a view the whole tensor's strides allow) takes a contiguous
+    copy, as ``reshape`` would.
+    Propagation comes before any local work, so a refused op has done
+    nothing yet.  What the op computes does not change; an op that
+    writes its first operand writes the replica, which is then copied
+    back.  ``ops`` counts each such op by name, backward ops included.
+    Plain tensors that meet DTensors are replicated tensors
+    (``implicit_replication``), as every device computes them whole.
+    Enter it after (inside) a counting mode, whose count then includes
+    the replicating collectives."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops: Dict[str, int] = {}
+
+    def __enter__(self):
+        from torch.distributed.tensor import DTensor
+        self._dispatcher = DTensor._op_dispatcher
+        self._implicit = self._dispatcher._allow_implicit_replication
+        self._dispatcher._allow_implicit_replication = True
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        self._dispatcher._allow_implicit_replication = self._implicit
+        return super().__exit__(*exc)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor, Replicate
+        kwargs = kwargs or {}
+        if not any(issubclass(t, DTensor) for t in types):
+            return func(*args, **kwargs)
+        if func in _LOOKUPS:
+            return _lookup(func, *args)
+        if func is torch.ops.aten.copy_.default and _into_partial(*args):
+            return _copy_into_partial(*args)
+        try:
+            if func in _VIEWS:
+                size = args[1] if len(args) > 1 else kwargs["size"]
+                args = (_view_ready(args[0], size),) + tuple(args[1:])
+                try:
+                    return func(*args, **kwargs)
+                except RuntimeError as e:   # a shard's strides refuse it
+                    if "view size is not compatible" not in str(e):
+                        raise
+                    args = (args[0].contiguous(),) + tuple(args[1:])
+            return func(*args, **kwargs)
+        except (RuntimeError, NotImplementedError) as e:
+            if "Sharding propagation failed" not in str(e) and \
+                    "does not have a sharding strategy" not in str(e):
+                raise
+        from torch.utils._pytree import tree_map
+
+        def whole(t):
+            if isinstance(t, DTensor) and \
+                    not all(p.is_replicate() for p in t.placements):
+                return t.redistribute(t.device_mesh,
+                                      [Replicate()] * t.device_mesh.ndim)
+            return t
+        name = str(func.overloadpacket).split(".")[-1]
+        self.ops[name] = self.ops.get(name, 0) + 1
+        mesh = next(t.device_mesh for t in _pt_leaves((args, kwargs))
+                    if isinstance(t, DTensor))
+        rargs, rkwargs = tree_map(whole, (args, kwargs))
+        # every operand whole: the op runs as on one device
+        largs, lkwargs = tree_map(lambda t: t.to_local() if isinstance(
+            t, DTensor) else t, (rargs, rkwargs))
+        out = func(*largs, **lkwargs)
+        first = func._schema.arguments[0] if func._schema.arguments else None
+        if first is not None and first.alias_info is not None and \
+                first.alias_info.is_write:
+            if rargs[0] is not args[0]:
+                args[0].copy_(rargs[0])
+            return args[0]
+        return tree_map(lambda t: DTensor.from_local(
+            t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+            if isinstance(t, torch.Tensor) else t, out)
+
+
+def _into_partial(dst, src, *_) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(dst, DTensor) and isinstance(src, DTensor) and \
+        any(p.is_partial() for p in dst.placements) and \
+        src.placements != dst.placements
+
+
+def _copy_into_partial(dst, src, non_blocking=False):
+    """``dst.copy_(src)`` for a partial ``dst`` (a gradient being
+    accumulated), which DTensor cannot do from ``src``'s placements:
+    ``src`` is made whole along ``dst``'s partial axes and laid out as
+    ``dst`` along the others; the first device along every partial
+    axis takes it and the rest zeros, so the partial sum is ``src``."""
+    from torch.distributed.tensor import Replicate
+    mesh = dst.device_mesh
+    src = src.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                  for p in dst.placements]).to_local()
+    first = all(mesh.get_local_rank(i) == 0
+                for i, p in enumerate(dst.placements) if p.is_partial())
+    local = dst.to_local()
+    if first:
+        local.copy_(src, non_blocking)
+    else:
+        local.zero_()
+    return dst
+
+
+_VIEWS = (torch.ops.aten.view.default, torch.ops.aten._unsafe_view.default)
+
+
+def _view_groups(old, new):
+    """The (old dims, new dims) that a view of shape ``old`` to ``new``
+    maps onto each other, size-1 dims aside; [] where it cannot tell."""
+    o = [(i, n) for i, n in enumerate(old) if n != 1]
+    w = [(j, n) for j, n in enumerate(new) if n != 1]
+    groups, i, j = [], 0, 0
+    while i < len(o) and j < len(w):
+        gi, gj = [o[i][0]], [w[j][0]]
+        a, b = o[i][1], w[j][1]
+        i, j = i + 1, j + 1
+        while a != b:
+            if a < b and i < len(o):
+                a *= o[i][1]
+                gi.append(o[i][0])
+                i += 1
+            elif b < a and j < len(w):
+                b *= w[j][1]
+                gj.append(w[j][0])
+                j += 1
+            else:
+                return []
+        groups.append((tuple(gi), tuple(gj)))
+    return groups
+
+
+def _view_ready(t, size):
+    """``t``, resharded where DTensor's view to ``size`` goes wrong: a
+    dim split unevenly over a mesh axis (which DTensor allows, and whose
+    local views can fail), or a unit dim "split" over an axis of one
+    (which DTensor will not drop), is gathered along that axis; a merge
+    of a dim it is split on into the dim before it (which DTensor
+    represents as a strided shard, whose redistributions it plans by a
+    search that grows with the mesh's rank) moves that axis to the
+    first dim the view keeps whole, by an all-to-all, or gathers it
+    where there is none; a split of a sharded dim keeps the mesh axes
+    whose product divides its first part and gathers the rest (DTensor
+    refuses such a split over one axis, as of 20 heads over 16 devices,
+    and gives it the wrong local shape over several)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(t, DTensor):
+        return t
+    size = list(size)
+    if -1 in size:              # the one inferred dim
+        size[size.index(-1)] = t.numel() // -math.prod(size)
+    groups = _view_groups(tuple(t.shape), tuple(size))
+    inner = {d for g, _ in groups for d in g[1:]}
+    merged = {d for g, _ in groups if len(g) > 1 for d in g}
+    #: a split dim -> the size of the first dim it splits into
+    split = {g[0]: size[h[0]] for g, h in groups
+             if len(g) == 1 and len(h) > 1}
+    place = list(t.placements)
+    ways = {}
+    for i, p in enumerate(place):
+        if not isinstance(p, Shard):
+            continue
+        n = t.device_mesh.shape[i]
+        if t.shape[p.dim] == 1 or t.shape[p.dim] % (ways.get(p.dim, 1) * n):
+            place[i] = Replicate()      # split unevenly, or a unit dim
+        elif p.dim in inner:
+            free = [d for d in range(t.dim()) if d not in merged
+                    and t.shape[d] % n == 0 and Shard(d) not in place]
+            place[i] = Shard(free[0]) if free else Replicate()
+        elif p.dim in split and split[p.dim] % (ways.get(p.dim, 1) * n):
+            place[i] = Replicate()
+        else:
+            ways[p.dim] = ways.get(p.dim, 1) * n
+    if place == list(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, place)
+
+
+_LOOKUPS = (torch.ops.aten.index.Tensor, torch.ops.aten.gather.default)
+
+
+def _lookup(func, src, dim_or_indices, index=None):
+    """A row lookup on DTensors, partitioned as GSPMD partitions a
+    gather: ``src[idx]`` (``aten.index`` with one index, on dim 0) or
+    ``gather(src, dim, index)``.  Along a mesh axis that splits the
+    looked-up dim (a vocab-sharded embedding or logits), each device
+    looks up the rows it holds, zeroes the rest, and the partial sums
+    are all-reduced over that axis; a partial ``src`` stays partial (the
+    lookup is linear in it); along any other axis the lookup is local.
+    (DTensor's own rule for these, a masked partial, compares its masks
+    with ``torch.equal``, which meta tensors lack.)"""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    if func is torch.ops.aten.gather.default:
+        dim, idx = dim_or_indices % src.dim(), index
+    else:
+        if len(dim_or_indices) != 1 or dim_or_indices[0] is None:
+            return func(src, dim_or_indices)
+        dim, idx = 0, dim_or_indices[0]
+    mesh = src.device_mesh
+    if not isinstance(idx, DTensor):
+        idx = DTensor.from_local(idx, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    if any(p.is_partial() for p in idx.placements):
+        idx = idx.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                      for p in idx.placements])
+    shape, offset = compute_local_shape_and_global_offset(
+        src.shape, mesh, src.placements)
+    split = shape[dim] < src.shape[dim]
+    idx_place, out_place = [], []
+    for ps, pi in zip(src.placements, idx.placements):
+        if ps.is_partial():         # a lookup is linear in ``src``
+            idx_place.append(Replicate())
+            out_place.append(ps)
+        elif ps == Shard(dim):
+            idx_place.append(Replicate())
+            out_place.append(Partial() if split else Replicate())
+        elif func is torch.ops.aten.gather.default:     # same-rank index
+            idx_place.append(ps)
+            out_place.append(ps)
+        elif isinstance(ps, Shard):
+            idx_place.append(Replicate())
+            out_place.append(Shard(idx.dim() + ps.dim - 1))
+        else:
+            idx_place.append(pi)
+            out_place.append(pi)
+    il = idx.redistribute(mesh, idx_place).to_local()
+    sl = src.to_local()
+    if split:
+        il = il - offset[dim]
+        valid = (il >= 0) & (il < shape[dim])
+        il = torch.clamp(il, 0, shape[dim] - 1)
+    if func is torch.ops.aten.gather.default:
+        out = func(sl, dim, il)
+        if split:
+            out = torch.where(valid, out, torch.zeros((), dtype=out.dtype,
+                                                      device=out.device))
+    else:
+        out = func(sl, [il])
+        if split:
+            out = torch.where(valid.reshape(valid.shape + (1,) * (
+                out.dim() - valid.dim())), out, torch.zeros(
+                    (), dtype=out.dtype, device=out.device))
+    out_shape = tuple(idx.shape) + (tuple(src.shape[1:])
+                                    if func is torch.ops.aten.index.Tensor
+                                    else ())
+    full = torch.empty(out_shape, dtype=out.dtype, device="meta")
+    out = DTensor.from_local(out, mesh, out_place, run_check=False,
+                             shape=full.shape, stride=full.stride())
+    if split:                   # the partial sums reduced, as GSPMD does
+        out = out.redistribute(mesh, [Replicate() if ps == Shard(dim)
+                                      else p for p, ps in
+                                      zip(out_place, src.placements)])
+    return out
 
 
 # ---------------------------------------------------------------------------

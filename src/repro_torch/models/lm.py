@@ -43,7 +43,7 @@ from .layers import (AttnSpec, TensorSpec, apply_mrope, apply_rope,
                      attention, cache_update, decode_attention, dense_mlp,
                      gated_mlp, init_from_specs, moe_mlp, rms_norm, softcap,
                      tree_leaves, tree_map, tree_unflatten,
-                     with_sharding_constraint)
+                     with_sharding_constraint, write_seq)
 from .perfopts import current
 
 Params = Dict[str, Any]
@@ -825,16 +825,19 @@ def _fill_cache_entry(entry: Params, kv: Optional[Params]) -> None:
     for key, val in (kv or {}).items():
         s, cache_len = val.shape[1], entry[key].shape[1]
         keep = min(cache_len, s)
-        entry[key][:, :keep] = val[:, s - keep:]
+        write_seq(entry[key], val[:, s - keep:], 0)
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            cache_len: Optional[int] = None):
+            cache_len: Optional[int] = None, alloc=None):
     """Run the full prompt, return (last-position logits, decode cache).
 
     The cache is allocated once at ``cache_len`` (default the prompt
-    length) for ``decode_step`` to update in place.  SSM/hybrid states
-    come from running the chunked recurrence over the prompt."""
+    length) for ``decode_step`` to update in place, by ``alloc`` (a
+    ``TensorSpec`` tree -> the same tree of zero tensors; default plain
+    zeros on the activations' device, where a DTensor program places
+    them).  SSM/hybrid states come from running the chunked recurrence
+    over the prompt."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     cache_len = cache_len or s
@@ -847,9 +850,10 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     if cfg.enc_dec:
         enc_out = encode(params, cfg, batch["enc_embeds"])
         enc_len = enc_out.shape[1]
-    cache = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
-                                           device=x.device),
-                     cache_specs(cfg, b, cache_len, enc_len))
+    specs = cache_specs(cfg, b, cache_len, enc_len)
+    cache = alloc(specs) if alloc is not None else tree_map(
+        lambda t: torch.zeros(t.shape, dtype=t.dtype, device=x.device),
+        specs)
 
     for p, spec, c in zip(params.get("pre", ()), cfg.pre,
                           cache.get("pre", ())):

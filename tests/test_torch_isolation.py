@@ -58,6 +58,25 @@ def test_no_jax_or_repro_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_fake_process_group_is_imported_only_where_a_plan_is_built():
+    """``torch.testing._internal`` is torch's test support: the port
+    reaches it in one function, ``launch.mesh.plan_group``."""
+    def testing(node):
+        return isinstance(node, ast.ImportFrom) and \
+            (node.module or "").startswith("torch.testing") or \
+            isinstance(node, ast.Import) and any(
+                a.name.startswith("torch.testing") for a in node.names)
+    users = set()
+    for path in PORT_FILES:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        name = str(path.relative_to(ROOT))
+        users |= {(name, None) for node in tree.body if testing(node)}
+        users |= {(name, fn.name) for fn in ast.walk(tree)
+                  if isinstance(fn, ast.FunctionDef)
+                  and any(testing(n) for n in ast.walk(fn))}
+    assert users == {("src/repro_torch/launch/mesh.py", "plan_group")}
+
+
 def test_package_imports_with_jax_and_repro_blocked(tmp_path):
     code = (
         "import sys\n"
@@ -116,9 +135,20 @@ def test_package_imports_with_jax_and_repro_blocked(tmp_path):
         "cell = steps.build_cell(cfg, ShapeSpec('d', 'decode', 8, 1),\n"
         "                        perf=OPTIMIZED)\n"
         "assert roofline.count(cell.fn, *cell.materialize('meta'))[0] > 0\n"
+        "assert sharding.placements((('pod', 'data'), 'model'),\n"
+        "    mesh.make_production_mesh(multi_pod=True))[2].dim == 1\n"
         "rec = dryrun.run_cell(cfg, ShapeSpec('p', 'prefill', 8, 1),\n"
         "                      mesh.make_production_mesh())\n"
         "assert rec['status'] == 'ok', rec\n"
+        "assert rec['collective_s'] >= 0\n"
+        "host = mesh.make_host_mesh(device='cpu')\n"
+        "import torch\n"
+        f"ck = checkpoint.save_checkpoint({str(tmp_path / 'ck')!r}, 1,\n"
+        "                                {'w': torch.ones(2, 4)})\n"
+        "w = checkpoint.restore_resharded(ck, {'w': torch.empty(2, 4)},\n"
+        "                                 {'w': (None, 'model')}, host)[0]\n"
+        "assert w['w'].full_tensor().sum() == 8\n"
+        "torch.distributed.destroy_process_group()\n"
         "with use_perf_opts(OPTIMIZED):\n"
         "    server.BatchServer(cfg, p, device='cpu').serve([\n"
         "        server.Request(1, prompt=[1, 2], max_new_tokens=2)])\n"

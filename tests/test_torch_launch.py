@@ -8,7 +8,9 @@ and 2x16x16 production meshes (the reference is given a
 batch specs and shardings too.  ``model_params`` and ``model_flops``
 equal the reference's exactly for every architecture and shape.  The
 FLOPs counted on "meta" for a reduced prefill cell equal an analytic
-count and the reference's HLO walk of the same computation exactly.  The dry run completes every reduced cell.
+count and the reference's HLO walk of the same computation exactly.  The
+dry run completes every reduced cell on both plans as a DTensor program,
+with its collective term.
 """
 import dataclasses
 import json
@@ -165,12 +167,14 @@ def test_terms_on_one_card_and_on_a_mesh():
     cfg = ARCHS["mixtral-8x7b"]
     shape = SHAPES["train_4k"]
     useful = roofline.model_flops(cfg, shape) / 256
-    t = roofline.terms({"flops": useful * 3, "hbm_bytes": 1e11}, cfg, shape,
-                       256)
-    assert t["collective_s"] is None and t["collective"] == "not modelled"
+    t = roofline.terms({"flops": useful * 3, "hbm_bytes": 1e11,
+                        "collective_s": 100.0}, cfg, shape, 256)
+    assert t["collective_s"] == 100.0 and "collective" not in t
     assert t["useful_flops_frac"] == pytest.approx(1 / 3)
     assert t["memory_s"] == pytest.approx(1e11 / 3.35e12)
-    assert t["bottleneck"] in ("compute", "memory")
+    assert t["bottleneck"] == "collective"
+    assert t["compute_s"] < 100.0
+    assert t["roofline_frac"] == pytest.approx(useful / 989e12 / 100.0)
     one = roofline.terms({"flops": 989e12, "hbm_bytes": 0.0}, cfg, shape, 1)
     assert one["collective_s"] == 0.0 and one["compute_s"] == 1.0
     assert one["bottleneck"] == "compute"
@@ -263,14 +267,18 @@ def test_train_cell_takes_a_step_on_cpu():
 def test_dryrun_all_reduced_cells(tmp_path, capsys):
     out = tmp_path / "dry.json"
     assert dryrun.main(["--all", "--reduced", "--mesh", "both", "--out",
-                        str(out)]) == 0
+                        str(out), "--workers", "4"]) == 0
     recs = json.loads(out.read_text())
     assert len(recs) == 2 * sum(len(shapes_for(c)) for c in ARCHS.values())
     assert all(r["status"] == "ok" for r in recs)
     assert {r["arch"] for r in recs} >= {"qwen2-vl-2b-reduced"}
     for r in recs:
         assert r["flops"] > 0 and r["hbm_bytes"] > 0 and r["fits_80gb"]
-        assert r["collective_s"] is None and r["n_chips"] in (256, 512)
+        assert r["n_chips"] in (256, 512)
+        assert r["collective_s"] >= 0 and r["collective_count"] >= 0
+        assert set(r["collectives"]) <= set(roofline.COLLECTIVES)
+        assert r["collective_bytes"] == pytest.approx(
+            sum(r["collectives"].values()))
     # a rerun finds every cell done
     assert dryrun.main(["--all", "--reduced", "--mesh", "both", "--out",
                         str(out)]) == 0
@@ -289,6 +297,15 @@ def test_dryrun_per_device_bytes_of_a_production_cell():
     kv = 2 * cfg.n_layers * 16 * 32768 * cfg.n_kv_heads * cfg.head_dim * 2
     assert per["cache"] == kv // 256
     assert per["params"] < 8e9 / 16 + 1e6
-    assert rec["flops"] == pytest.approx(rec["global_flops"] / 256)
+    # per-device counts from the local ops: at most the whole step's
+    # (counted on one device), at least its share of 256
+    one = dryrun.run_cell(cfg, dataclasses.replace(
+        SHAPES["decode_32k"], global_batch=16), steps.ONE_DEVICE)
+    assert one["collective_count"] == 0 and one["collective_s"] == 0
+    assert one["flops"] / 256 <= rec["flops"] <= one["flops"]
+    assert rec["collective_count"] > 0 and rec["collective_s"] > 0
+    assert rec["links"] == {"data": "infiniband", "model": "infiniband"}
     np.testing.assert_allclose(rec["memory_s"],
                                rec["hbm_bytes"] / roofline.HBM_BW)
+    np.testing.assert_allclose(rec["collective_s"],
+                               rec["collective_bytes"] / roofline.IB_BW)
