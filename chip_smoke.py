@@ -144,8 +144,13 @@ Drives ``repro_torch`` only — it imports neither JAX nor ``repro``:
    8 steps default and 8 under ``OPTIMIZED`` from the same arguments,
    against the bound by bytes.  (e) ``launch.dryrun`` of qwen1.5-4b on
    "meta" over its three shapes on the 16x16 mesh plan, printed per
-   cell; then (d)'s cell counted on one device, its ``memory_s`` beside
-   the measured step.
+   cell, and decode_32k on 16x16 again under ``OPTIMIZED`` beside the
+   default (``decode_opt``'s products on each device's own cache shard:
+   no ``bmm`` run replicated, at most twice the default's collective
+   bytes); then (d)'s cell counted on one device, its ``memory_s``
+   beside the measured step.  (f) The prefill and decode_32k cells as
+   DTensor programs on a 1x1 CUDA mesh against the plain cells, bit for
+   bit, default and ``OPTIMIZED``.
 
 11. **Examples and tools** (``[examples]`` lines): each of the port's
    scripts beside the JAX package's (``examples/*_torch.py``,
@@ -169,10 +174,24 @@ Drives ``repro_torch`` only — it imports neither JAX nor ``repro``:
    ``make_golden_cim_mvm_torch --check``: all six committed goldens
    reproduced through the kernel bit for bit.
 
+12. **The trainer on a mesh** (``[mesh]`` lines), TF32 off.  (a)
+   ``Trainer(..., mesh=make_host_mesh())`` on a 1x1 NCCL ``DeviceMesh``:
+   qwen1.5-4b at full width in bf16, cut to its first 4 of 40 layers
+   (as phase 9's profiled step), B = 2, S = 4096, full remat, 3 steps
+   against the one-device ``Trainer`` on the same cut and seed; losses,
+   params and moments bit-equal; step seconds of both, the mesh run's
+   peak memory and the ops it ran replicated.  (b) Elastic restart: a
+   one-device run stopped at step 2 by its checkpoint, relaunched on the
+   mesh through ``restore_resharded``, ends bit-equal to the
+   uninterrupted 3 steps.  (c) ``python -m torch.distributed.run
+   --standalone --nproc-per-node <cards> -m repro_torch.launch.train
+   --mesh host --arch qwen1.5-4b --reduced --steps 4`` as a child
+   process group: exit 0, one ``final:`` line, one ``metrics.jsonl``.
+
 Launch counts are set to 0 just before each of phases 3, 5, 6, 7,
-8 (d), 9 and 10 and each script of phase 11, and read just after; each
-of 3-8 must have launched ``cim_mvm_tiles`` and ``cim_mvm``, phases 9
-and 10 neither (the LM substrate has no TPU kernel), and in phase 11
+8 (d), 9, 10 and 12 and each script of phase 11, and read just after;
+each of 3-8 must have launched ``cim_mvm_tiles`` and ``cim_mvm``, phases
+9, 10 and 12 neither (the LM substrate has no TPU kernel), and in phase 11
 (a) and (h) must have launched the kernel.  Prints one ``{"kernels": [...]}`` JSON line (``launches``
 is phase 3's count, ``launches_by_path`` every phase's) and the
 ``nvidia-smi`` line before the last line, which is ``{"ok": true,
@@ -242,6 +261,12 @@ LAUNCH_DRYRUN_ARCH = "qwen1.5-4b"
 DRYRUN_WORKERS = 6            # phase 10 (e): the cells' processes
 LAUNCH_SPMD_PREFILL = (2, 4096)   # phase 10 (f): (B, S) of the prefill
 EXAMPLES_TRAIN_STEPS = 200    # examples/train_lm_torch.py's default
+#: phase 12: the mesh trainer on a depth cut at TRAIN_SHAPE (as phase
+#: 9's profiled step: a DTensor step at full depth would take minutes),
+#: its steps, and the launcher's steps across the cards present
+MESH_TRAIN_LAYERS = 4
+MESH_TRAIN_STEPS = 3
+MESH_LAUNCH_STEPS = 4
 
 
 def gpu_line() -> str:
@@ -2098,6 +2123,7 @@ import dataclasses, json, sys
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import SHAPES
 from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.steps import ONE_DEVICE
 arch, out, workers, small, b = sys.argv[1:6]
 rc = dryrun.main(["--arch", arch, "--mesh", "both", "--out", out,
@@ -2108,7 +2134,13 @@ cfg = reduced(cfg) if small == "1" else cfg
 shape = dataclasses.replace(SHAPES["decode_32k"], global_batch=int(b))
 recs = [dryrun.run_cell(cfg, shape, ONE_DEVICE, optimized=opt)
         for opt in (False, True)]
-print(json.dumps({"rc": rc, "one_device": recs}))
+plan = SHAPES["decode_32k"]
+if small == "1":                # the cut dryrun.main's --reduced makes
+    plan = dataclasses.replace(
+        plan, seq_len=min(plan.seq_len, dryrun.REDUCED_SEQ),
+        global_batch=min(plan.global_batch, dryrun.REDUCED_BATCH))
+opt = dryrun.run_cell(cfg, plan, make_production_mesh(), optimized=True)
+print(json.dumps({"rc": rc, "one_device": recs, "optimized_16x16": opt}))
 """
 
 
@@ -2158,6 +2190,24 @@ def _launch_dryrun(shape, decode_ms):
                          f"{k} {v / 1e9:.6g}" for k, v in
                          sorted(ref[1].items())) + " GB")
         print(line)
+    opt = res["optimized_16x16"]
+    assert opt["status"] == "ok", opt
+    base = next(r for r in recs if r["mesh"] == "16x16"
+                and r["shape"] == "decode_32k")
+    kinds = ", ".join(f"{k} {v / 1e9:.6g}" for k, v in
+                      sorted(opt["collectives"].items()))
+    print(f"[launch] (e) {opt['arch']}:decode_32k on 16x16 under OPTIMIZED "
+          f"(decode_opt's per-sequence products on each device's own "
+          f"cache shard; {opt['total_s']} s): {opt['collective_count']} "
+          f"collectives, {opt['collective_bytes'] / 1e9:.6g} GB on the wire "
+          f"per device ({kinds} GB), beside the default's "
+          f"{base['collective_count']} and "
+          f"{base['collective_bytes'] / 1e9:.6g} GB; memory_s "
+          f"{opt['memory_s']:.6g} s against {base['memory_s']:.6g} s; "
+          f"replicated ops {opt['replicated_ops'] or 'none'}")
+    assert "bmm" not in opt["replicated_ops"], opt["replicated_ops"]
+    assert opt["collective_bytes"] <= 2 * base["collective_bytes"], \
+        (opt["collectives"], base["collectives"])
     for name, rec in zip(("default", "OPTIMIZED"), res["one_device"]):
         assert rec["status"] == "ok", rec
         print(f"[launch] (e) {rec['arch']}:{rec['shape']} B="
@@ -2491,6 +2541,214 @@ def phase_examples():
     return total
 
 
+# --------------------------------------------------------------------------
+# Phase 12: the Trainer on a DeviceMesh, its elastic restart, and the
+# training launcher across the cards present.
+
+def _cut_trainer(workdir, cfg, mesh=None, steps: int = MESH_TRAIN_STEPS,
+                 save_every: int = 100):
+    """A ``Trainer`` of ``cfg`` on ``TokenStream(vocab, B, S, seed=0)``
+    at TRAIN_SHAPE, logging every step: on the card, or on ``mesh``."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import TokenStream, make_batch_iterator
+    from repro_torch.train import Trainer, TrainerConfig
+    b, s = TRAIN_SHAPE
+    stream = TokenStream(cfg.vocab, b, s, seed=0)
+    tcfg = TrainerConfig(workdir=str(workdir), num_steps=steps,
+                         save_every=save_every, log_every=1, lr=TRAIN_LR)
+    kw = {"mesh": mesh} if mesh is not None else {"device": DEV}
+    return Trainer(cfg, ShapeSpec("train_cut", "train", s, b), tcfg,
+                   make_batch_iterator(stream), data_state=stream.state,
+                   **kw)
+
+
+def _state(trainer) -> list:
+    """The trainer's params and moments, whole."""
+    from repro_torch.models.layers import tree_leaves
+    return [t.full_tensor() if hasattr(t, "full_tensor") else t
+            for t in tree_leaves((trainer.params, trainer.opt_state))]
+
+
+def _losses(workdir) -> dict:
+    return {r["step"]: r["loss"] for r in _records(workdir) if "ema" in r}
+
+
+def _mesh_vs_one(wd):
+    """Phase 12 (a) and (b): the mesh trainer on a 1x1 NCCL mesh against
+    the one-device trainer, then a one-device run stopped at step 2 by
+    its checkpoint and relaunched on the mesh; returns the mesh's
+    numbers."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = dataclasses.replace(_lm_base(), n_layers=MESH_TRAIN_LAYERS)
+    b, s = TRAIN_SHAPE
+    mesh = make_host_mesh(device=DEV)
+    assert mesh.size == 1, mesh
+    out = {}
+    for kind, m in (("plain", None), ("mesh", mesh)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = _cut_trainer(wd / kind, cfg, m)
+        t0 = time.perf_counter()
+        res = trainer.train(seed=0)
+        took = time.perf_counter() - t0
+        recs = [r for r in _records(wd / kind) if "ema" in r]
+        out[kind] = {"state": _state(trainer), "step_s": [
+            r["step_s"] for r in recs], "wall_s": took,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "losses": _losses(wd / kind), "res": res}
+        if m is not None:
+            out[kind]["replicated_ops"] = dict(trainer.replicated_ops)
+        del trainer
+    plain, spmd = out["plain"], out["mesh"]
+    same = all(torch.equal(a, b_) for a, b_ in zip(plain["state"],
+                                                   spmd["state"]))
+    print(f"[mesh] (a) {cfg.name} at full width, {MESH_TRAIN_LAYERS} of "
+          f"{_lm_base().n_layers} layers, {cfg.dtype}, B={b} S={s}, full "
+          f"remat, lr {TRAIN_LR}: {MESH_TRAIN_STEPS} steps through "
+          f"Trainer(..., mesh=1x1 NCCL DeviceMesh) against the one-device "
+          f"Trainer from the same seed")
+    for kind in ("plain", "mesh"):
+        o = out[kind]
+        print(f"[mesh] (a) {kind}: losses " + ", ".join(
+            f"{o['losses'][k]:.6f}" for k in sorted(o["losses"]))
+            + "; step s " + ", ".join(f"{x:.4f}" for x in o["step_s"])
+            + f" (median of steps 2-{len(o['step_s'])} "
+            f"{np.median(o['step_s'][1:]):.4f} s); peak "
+            f"{o['peak_gib']:.2f} GiB")
+    print(f"[mesh] (a) losses equal: {plain['losses'] == spmd['losses']}; "
+          f"params and moments bit-equal: {same} "
+          f"({len(spmd['state'])} leaves); replicated ops "
+          f"{spmd['replicated_ops'] or 'none'}")
+    assert all(math.isfinite(x) for x in plain["losses"].values())
+    assert plain["losses"] == spmd["losses"], (plain["losses"],
+                                               spmd["losses"])
+    assert sorted(spmd["losses"]) == list(range(1, MESH_TRAIN_STEPS + 1))
+    assert same
+    want = plain["state"]
+    del out
+    torch.cuda.empty_cache()
+
+    # (b) a one-device run checkpointed at step 2 and stopped, then a
+    # relaunch on the mesh, which re-shards the checkpoint onto it
+    first = _cut_trainer(wd / "cut", cfg, steps=2, save_every=2)
+    first.train(seed=0)
+    del first
+    torch.cuda.empty_cache()
+    again = _cut_trainer(wd / "cut", cfg, mesh)
+    t0 = time.perf_counter()
+    again.train(seed=0)
+    took = time.perf_counter() - t0
+    got = _state(again)
+    same = all(torch.equal(a, b_) for a, b_ in zip(want, got))
+    losses = _losses(wd / "cut")
+    print(f"[mesh] (b) {cfg.name} cut: 2 steps on one device, "
+          f"checkpointed at step 2, then Trainer(..., mesh=1x1) resumed "
+          f"through restore_resharded ({took:.1f} s): step 3 loss "
+          f"{losses[3]:.6f} vs uninterrupted {plain['losses'][3]:.6f}; "
+          f"params and moments bit-equal to the uninterrupted 3 steps: "
+          f"{same}")
+    assert sorted(losses) == [1, 2, 3] and losses == plain["losses"], losses
+    assert same
+    return {"plain_step_s": float(np.median(plain["step_s"][1:])),
+            "mesh_step_s": float(np.median(spmd["step_s"][1:])),
+            "mesh_peak_gib": spmd["peak_gib"],
+            "replicated_ops": spmd["replicated_ops"]}
+
+
+def _run_group(cmd, timeout: int):
+    """``cmd`` in a session of its own, its whole process group killed if
+    it outlives ``timeout``; returns (exit code, stdout, stderr)."""
+    import os
+    import signal
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True,
+                            env=dict(os.environ,
+                                     PYTHONPATH=str(ROOT / "src")))
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise AssertionError(f"{cmd} outlived {timeout} s:\n{err[-4000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+    return proc.returncode, out, err
+
+
+def _mesh_launcher(wd):
+    """Phase 12 (c): the training launcher on a host mesh of the cards
+    present, one process each, under ``torch.distributed.run``."""
+    import torch
+    n = torch.cuda.device_count()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(n), "-m", "repro_torch.launch.train",
+           "--mesh", "host", "--arch", LM_ARCH, "--reduced", "--steps",
+           str(MESH_LAUNCH_STEPS), "--workdir", str(wd / "cli")]
+    if DEV != "cuda":
+        cmd += ["--device", DEV]
+    t0 = time.perf_counter()
+    rc, out, err = _run_group(cmd, timeout=600)
+    took = time.perf_counter() - t0
+    finals = [ln for ln in out.splitlines() if ln.startswith("final:")]
+    metrics = sorted((wd / "cli").rglob("metrics.jsonl"))
+    recs = _records(wd / "cli") if metrics else []
+    print(f"[mesh] (c) python -m torch.distributed.run --nproc-per-node {n} "
+          f"-m repro_torch.launch.train --mesh host --arch {LM_ARCH} "
+          f"--reduced --steps {MESH_LAUNCH_STEPS}: exit {rc} in {took:.1f} "
+          f"s; {len(finals)} final line(s) {finals}; metrics files "
+          f"{[str(p.relative_to(wd)) for p in metrics]}, {len(recs)} "
+          f"records")
+    if rc:
+        print(out[-4000:] + err[-4000:])
+    assert rc == 0 and len(finals) == 1, rc
+    assert metrics == [wd / "cli" / "metrics.jsonl"], metrics
+    assert recs and recs[-1]["event"] == "done" and \
+        recs[-1]["steps"] == MESH_LAUNCH_STEPS, recs
+    return took
+
+
+def phase_mesh_train():
+    """Phase 12; returns the kernel launch counts of its path (none: the
+    LM trainer reaches no TPU-kernel counterpart)."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.cim_mvm import kernel
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[mesh] card: {gpu_line()}")
+    kernel.reset_launch_counts()
+    took = {}
+    with tempfile.TemporaryDirectory() as wd:
+        wd = pathlib.Path(wd)
+        t0 = time.perf_counter()
+        try:
+            res = _mesh_vs_one(wd)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        took["a+b"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        took["c"] = _mesh_launcher(wd)
+    print(f"[mesh] median step: mesh {res['mesh_step_s']:.4f} s, plain "
+          f"{res['plain_step_s']:.4f} s "
+          f"({res['mesh_step_s'] / res['plain_step_s']:.2f}x); mesh peak "
+          f"{res['mesh_peak_gib']:.2f} GiB; card: {gpu_line()}")
+    print("[mesh] seconds: " + ", ".join(f"({k}) {v:.1f}"
+                                         for k, v in took.items()))
+    launches = dict(kernel.LAUNCHES)
+    print(f"[mesh] kernel launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    assert sum(launches.values()) == 0, launches
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2524,6 +2782,8 @@ def main() -> int:
     by_path["launch"] = phase_launch(serving, full_remat)
     torch.cuda.empty_cache()
     by_path["examples"] = phase_examples()
+    torch.cuda.empty_cache()
+    by_path["mesh_train"] = phase_mesh_train()
     for name, row in rows.items():
         row["launches_by_path"] = {p: n[name] for p, n in by_path.items()}
     rows["cim_mvm_tiles"]["puma_faulted_forward"] = puma_forward

@@ -15,6 +15,12 @@ which is what numpy makes of an ml_dtypes array: the reference reads it
 back as bfloat16, and this package reads it through a ``uint16`` view
 (it imports no ml_dtypes).  A crashed writer leaves only a ``.tmp-``
 directory, which nothing restores.
+
+A tree of DTensors is saved from every rank of its mesh: each leaf's
+``full_tensor()`` is a collective that every rank joins, rank 0 alone
+writes the logical arrays (still ``process_count`` 1), and every rank
+waits at a barrier, so none reads ``latest()`` before the write is
+published.  Any mesh, one device or the reference restores it.
 """
 from __future__ import annotations
 
@@ -35,10 +41,7 @@ _BF16 = "bfloat16"
 
 
 def _to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
-    """(the array npz stores, the manifest's dtype) of one leaf (a
-    DTensor's whole value)."""
-    if hasattr(t, "full_tensor"):       # a DTensor
-        t = t.full_tensor()
+    """(the array npz stores, the manifest's dtype) of one whole leaf."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.dtype("V2")), _BF16
@@ -55,20 +58,45 @@ def _from_numpy(arr: np.ndarray, want: Optional[str]) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _writer(leaves) -> Tuple[bool, bool]:
+    """(whether this process writes, whether the leaves span ranks):
+    of a tree of DTensors only rank 0 writes."""
+    import torch.distributed as dist
+    spread = any(hasattr(t, "full_tensor") for t in leaves) and \
+        dist.is_initialized()
+    return (not spread or dist.get_rank() == 0), spread
+
+
 def save_checkpoint(directory, step: int, tree: Any,
                     extra: Optional[Dict] = None) -> str:
     """Atomically write a checkpoint of ``tree``'s tensor leaves (from any
-    device); returns the final path."""
+    device, or DTensors on any mesh: every rank calls it); returns the
+    final path."""
     directory = Path(directory)
-    directory.mkdir(parents=True, exist_ok=True)
     final = directory / f"step_{step:08d}"
+    leaves = tree_leaves(tree)
+    writes, spread = _writer(leaves)
+    flat, dtypes = {}, {}
+    for i, leaf in enumerate(leaves):
+        if hasattr(leaf, "full_tensor"):        # a DTensor: every rank
+            leaf = leaf.full_tensor()
+        if writes:
+            key = f"leaf_{i:05d}"
+            flat[key], dtypes[key] = _to_numpy(leaf)
+    if writes:
+        _write(directory, final, step, flat, dtypes, extra)
+    if spread:
+        import torch.distributed as dist
+        dist.barrier()
+    return str(final)
+
+
+def _write(directory: Path, final: Path, step: int, flat: Dict,
+           dtypes: Dict, extra: Optional[Dict]) -> None:
+    directory.mkdir(parents=True, exist_ok=True)
     staging = Path(tempfile.mkdtemp(prefix=final.name + ".tmp-",
                                     dir=directory))
     try:
-        flat, dtypes = {}, {}
-        for i, leaf in enumerate(tree_leaves(tree)):
-            key = f"leaf_{i:05d}"
-            flat[key], dtypes[key] = _to_numpy(leaf)
         np.savez(staging / "arrays_p0.npz", **flat)
         manifest = {
             "step": int(step),
@@ -83,7 +111,6 @@ def save_checkpoint(directory, step: int, tree: Any,
         if final.exists():
             shutil.rmtree(final)
         os.rename(staging, final)
-        return str(final)
     except BaseException:
         shutil.rmtree(staging, ignore_errors=True)
         raise
@@ -142,18 +169,16 @@ def restore_resharded(path, like: Any, shardings: Any, mesh,
     ``launch.mesh.Mesh`` with devices) by its partition spec in
     ``shardings`` (a tree of specs matching ``like``), whatever mesh
     wrote the checkpoint; ``device_mesh`` defaults to
-    ``mesh.device_mesh()``.  The reference's ``restore_resharded``."""
-    from torch.distributed.tensor import distribute_tensor
+    ``mesh.device_mesh()``.  Every rank reads the whole checkpoint and
+    keeps its own slices, so no data moves between ranks.  The
+    reference's ``restore_resharded``."""
     from ..launch import sharding as shd
     if not mesh.devices:
         raise ValueError(f"the {mesh.name} plan has no devices to restore "
                          "onto")
     dm = device_mesh if device_mesh is not None else mesh.device_mesh()
-    tree, extra = restore_checkpoint(path, like)
-    placed = shd.tree_zip(lambda t, spec: distribute_tensor(
-        t.to(mesh.devices[0]), dm, shd.placements(spec, mesh)),
-        tree, shardings)
-    return placed, extra
+    tree, extra = restore_on_device(path, like, mesh.local_device)
+    return shd.distribute(tree, shardings, mesh, dm), extra
 
 
 class CheckpointManager:
@@ -169,8 +194,9 @@ class CheckpointManager:
         if step % self.save_every:
             return None
         path = save_checkpoint(self.directory, step, tree, extra)
-        for p in _steps(self.directory)[:-self.keep]:
-            shutil.rmtree(p, ignore_errors=True)
+        if _writer(tree_leaves(tree))[0]:
+            for p in _steps(self.directory)[:-self.keep]:
+                shutil.rmtree(p, ignore_errors=True)
         return path
 
     def latest(self) -> Optional[str]:

@@ -15,10 +15,14 @@ program (``launch.steps``):
     16x16 = 256 ("data", "model") and 2 pods x 256 = 512 ("pod",
     "data", "model", the pod axis pure data parallelism), need no
     devices.  One fake group of ``PLAN_WORLD`` ranks holds both;
-  * a host mesh (``make_host_mesh``) spans its real devices: NCCL on
-    the card, gloo on the CPU, started at world size 1 over an
-    in-process store when no group exists, or the caller's group when
-    its size is the mesh's.
+  * a host mesh (``make_host_mesh``) spans its real devices, one
+    process each: NCCL on the cards (each rank on ``cuda:LOCAL_RANK``,
+    so a world may span hosts of the same card count), gloo on the CPU
+    (each rank one CPU device).  Under
+    ``python -m torch.distributed.run`` its group starts from the
+    environment (``env://``) at ``WORLD_SIZE`` ranks; a world of one
+    starts over an in-process store; a live group of the mesh's size
+    is used as it is.
 
 A process has one default group, so ``plan_group`` starts the fake one
 and destroys it on leaving, and refuses to start where another group
@@ -29,6 +33,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import os
 from typing import Dict, Iterator, Optional, Tuple
 
 import torch
@@ -68,6 +73,16 @@ class Mesh:
     def name(self) -> str:
         return "x".join(map(str, self.axis_sizes))
 
+    @property
+    def local_device(self) -> torch.device:
+        """This process's device of a host mesh: ``devices[rank]``, the
+        rank of the live group, else of the environment (0 outside
+        ``torch.distributed.run``); on the cards that is
+        ``cuda:LOCAL_RANK``."""
+        if not self.devices:
+            raise ValueError(f"the {self.name} plan has no devices")
+        return torch.device(self.devices[_rank()])
+
     def device_mesh(self):
         """The ``torch.distributed.DeviceMesh`` of this mesh, with its
         axis names.  A plan needs the fake group (``plan_group``) and
@@ -90,16 +105,21 @@ class Mesh:
                                    f"{self.name} plan needs {self.size}")
             return DeviceMesh("cuda", ranks, mesh_dim_names=self.axis_names)
         kind = torch.device(self.devices[0]).type
+        if kind == "cuda":
+            torch.cuda.set_device(self.local_device)
         if not dist.is_initialized():
-            if self.size != 1:
+            backend = "nccl" if kind == "cuda" else "gloo"
+            if self.size == 1:
+                dist.init_process_group(backend, store=dist.HashStore(),
+                                        rank=0, world_size=1)
+            elif _world() != self.size:
                 raise RuntimeError(
                     f"a {self.name} host mesh needs one process per "
-                    "device: start its group (torch.distributed) first")
-            if kind == "cuda":
-                torch.cuda.set_device(torch.device(self.devices[0]))
-            dist.init_process_group("nccl" if kind == "cuda" else "gloo",
-                                    store=dist.HashStore(), rank=0,
-                                    world_size=1)
+                    f"device, {self.size} in all; this one runs in a world "
+                    f"of {_world()}: launch it with python -m "
+                    f"torch.distributed.run --nproc-per-node {self.size}")
+            else:           # raises where the group cannot start
+                dist.init_process_group(backend, init_method="env://")
         elif dist.get_world_size() != self.size:
             raise RuntimeError(f"the process group has "
                                f"{dist.get_world_size()} ranks, the "
@@ -144,10 +164,41 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return Mesh(("data", "model"), (16, 16))
 
 
+def _world(key: str = "WORLD_SIZE") -> int:
+    """The world size (or with ``key="LOCAL_WORLD_SIZE"``, this host's
+    share of it) that ``torch.distributed.run`` gave this process (1
+    outside it)."""
+    return int(os.environ.get(key, os.environ.get("WORLD_SIZE", "1")))
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return dist.get_rank()
+    return int(os.environ.get("RANK", "0"))
+
+
 def make_host_mesh(model: int = 1, device: Optional[str] = None) -> Mesh:
     """(n // model, model) ("data", "model") over the CUDA devices present
-    (default), or over one CPU device when ``device="cpu"``."""
+    (default), or over CPU devices when ``device="cpu"``: one device per
+    process.  Under ``torch.distributed.run`` n is ``WORLD_SIZE`` (each
+    rank on ``cuda:LOCAL_RANK``, ranks numbered host by host as the
+    launcher numbers them, or on the CPU), and ``model`` must divide it;
+    otherwise the cards present (whole rows of the model axis), or one
+    CPU."""
     dev = resolve_device(device)
+    world, local = _world(), _world("LOCAL_WORLD_SIZE")
+    if "WORLD_SIZE" in os.environ:
+        if world % model:
+            raise ValueError(f"a model axis of {model} does not divide "
+                             f"the {world} ranks")
+        if dev.type == "cuda" and local > torch.cuda.device_count():
+            raise RuntimeError(f"{local} ranks on this host, "
+                               f"{torch.cuda.device_count()} cards: a host "
+                               "mesh needs a card per rank")
+        devices = tuple(f"cuda:{r % local}" if dev.type == "cuda"
+                        else str(dev) for r in range(world))
+        return Mesh(("data", "model"), (world // model, model), devices)
     if dev.type == "cuda":
         devices = tuple(f"cuda:{i}" for i in range(torch.cuda.device_count()))
     else:

@@ -15,7 +15,7 @@ Serve:   params shard on "model" only; batch on ("pod","data");
 
 ``placements`` turns a partition spec into the DTensor placements of a
 tensor on the mesh's ``DeviceMesh`` (``Mesh.device_mesh``), and
-``tree_placements`` a tree of specs.
+``distribute`` places a tree of tensors by a tree of specs.
 """
 from __future__ import annotations
 
@@ -154,6 +154,17 @@ def placements(spec: Spec, mesh: Mesh) -> tuple:
                                  f"{mesh.axis_names[i]!r} used twice")
             out[i] = Shard(d)
     return tuple(out)
+
+
+def distribute(tree: Any, specs: Any, mesh: Mesh, device_mesh) -> Any:
+    """A tree of tensors, whole and alike on every rank, as DTensors
+    placed by a matching tree of partition specs on ``device_mesh`` (the
+    ``DeviceMesh`` of ``mesh``): each rank keeps its own slices of its
+    copy, so no data moves."""
+    from torch.distributed.tensor import distribute_tensor
+    return tree_zip(lambda t, spec: distribute_tensor(
+        t, device_mesh, placements(spec, mesh), src_data_rank=None),
+        tree, specs)
 
 
 def local_shape(shape: Tuple[int, ...], spec: Spec,

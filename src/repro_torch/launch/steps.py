@@ -19,7 +19,9 @@ The training step is split where the trainer needs it split:
 ``loss_and_grads`` leaves the state untouched, so a caller can look at
 the loss before ``apply_update`` changes the params and moments in
 place (the reference's step is functional and its trainer drops a bad
-update instead).
+update instead).  A train cell carries the two halves as it runs them
+(``Cell.loss_and_grads``, ``Cell.apply_update``), and its ``fn`` is
+the one then the other, so the mesh trainer's step is the cell's.
 """
 from __future__ import annotations
 
@@ -234,6 +236,11 @@ class Cell:
     #: the ops run replicated on a ``DeviceMesh`` (``ReplicateUnpropagated``),
     #: by name, with how often, over every call of ``fn``
     replicated_ops: Dict[str, int] = dataclasses.field(default_factory=dict)
+    #: a train cell's halves, as ``fn`` runs them: ``(params, batch) ->
+    #: (loss, grads)`` and ``(params, opt_state, grads) -> (opt_state,
+    #: grad_norm)``; None for the other cells
+    loss_and_grads: Optional[Callable] = None
+    apply_update: Optional[Callable] = None
 
     def materialize(self, device, generator: Optional[torch.Generator] = None,
                     mesh=None) -> Tuple[Any, ...]:
@@ -259,9 +266,7 @@ class Cell:
                 full = init_from_specs(tree, generator, device)
             if mesh is None:
                 return full
-            from torch.distributed.tensor import distribute_tensor
-            return shd.tree_zip(lambda t, spec: distribute_tensor(
-                t, mesh, shd.placements(spec, self.mesh)), full, specs)
+            return shd.distribute(full, specs, self.mesh, mesh)
         return tuple(make(a, s) for a, s in zip(self.args, self.in_shardings))
 
 
@@ -334,15 +339,26 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec,
             nu=shd.tree_shardings(o_specs.nu, p_axes, mesh, p_rules))
         mb = microbatches or default_microbatches(cfg, shape, mesh)
 
-        def train_cell(params, opt_state, batch):
+        def grads_half(params, batch):
             with use_perf_opts(perf):
-                return train_step(params, opt_state, batch, cfg, lr=lr,
-                                  microbatches=mb)
-        return _cell(name, train_cell, (p_specs, o_specs, b_specs),
-                     (p_shard, o_shard, b_shard),
-                     (p_shard, o_shard, {"loss": shd.replicated(mesh),
-                                         "grad_norm": shd.replicated(mesh)}),
-                     mesh)
+                return loss_and_grads(params, cfg, batch, mb)
+
+        def update_half(params, opt_state, grads):
+            with use_perf_opts(perf):
+                return apply_update(params, opt_state, grads, lr)
+        ops: Dict[str, int] = {}
+        grads_fn, update_fn = _spmd(grads_half, ops), _spmd(update_half, ops)
+
+        def train_cell(params, opt_state, batch):   # ``train_step``, halved
+            loss, grads = grads_fn(params, batch)
+            opt_state, gnorm = update_fn(params, opt_state, grads)
+            return params, opt_state, {"loss": loss, "grad_norm": gnorm}
+        return Cell(name, train_cell, (p_specs, o_specs, b_specs),
+                    (p_shard, o_shard, b_shard),
+                    (p_shard, o_shard, {"loss": shd.replicated(mesh),
+                                        "grad_norm": shd.replicated(mesh)}),
+                    mesh, replicated_ops=ops, loss_and_grads=grads_fn,
+                    apply_update=update_fn)
 
     b, s = shape.global_batch, shape.seq_len
     c_rules = shd.cache_rules(cfg, mesh, kind)

@@ -286,6 +286,72 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a, b, out_dtype=F32)
 
 
+def _seq_bmm(a: torch.Tensor, cache: torch.Tensor, perm) -> torch.Tensor:
+    """One ``_bmm_f32`` per sequence i: ``a[i]`` times ``cache[i]`` (its
+    (S, Hkv, D) slice) permuted by ``perm``, a view in place."""
+    return torch.stack([_bmm_f32(a[i], cache[i].permute(*perm))
+                        for i in range(a.shape[0])])
+
+
+#: decode_opt's two products over a (B, S, Hkv, D) cache shard, per
+#: cache dim a mesh axis splits: (the other operand's placement, the
+#: result's) as "shard" dim, "rep" or "partial" (a sum over the split);
+#: scores (B, Hkv, g, D) x cache -> (B, Hkv, g, S), and
+#: attend (B, Hkv, g, S) x cache -> (B, Hkv, g, D)
+_SCORE_DIMS = {0: (0, 0), 1: ("rep", 3), 2: (1, 1), 3: (3, "partial")}
+_ATTEND_DIMS = {0: (0, 0), 1: (3, "partial"), 2: (1, 1), 3: ("rep", 3)}
+
+
+def _on_shards(fn: Callable, a: torch.Tensor, cache: torch.Tensor,
+               dims: Dict[int, Tuple], shape: Tuple[int, ...]):
+    """``fn(a, cache)``; on a DTensor ``cache``, ``fn`` of each device's
+    own shards, with ``a`` brought to the placements ``dims`` gives it
+    beside the cache's and the result placed by ``dims`` (global
+    ``shape``).  DTensor would replicate both operands of a ``bmm.dtype``
+    (it has no sharding for it) and gather the batch to select a
+    sequence: the whole cache on every device."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(cache, DTensor):
+        return fn(a, cache)
+    mesh = cache.device_mesh
+    if not isinstance(a, DTensor):
+        a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+
+    def place(d):
+        return {"rep": Replicate(), "partial": Partial()}.get(d) \
+            if isinstance(d, str) else Shard(d)
+    a_place, out_place = [], []
+    for p in cache.placements:
+        if p.is_replicate():
+            a_place.append(Replicate())
+            out_place.append(Replicate())
+            continue
+        if not p.is_shard():
+            raise ValueError(f"a cache placed {cache.placements}")
+        da, do = dims[p.dim]
+        a_place.append(place(da))
+        out_place.append(place(do))
+    a = a.redistribute(mesh, a_place)
+    local = fn(a.to_local(), cache.to_local())
+    full = torch.empty(shape, device="meta")
+    return DTensor.from_local(local, mesh, out_place, run_check=False,
+                              shape=full.shape, stride=full.stride())
+
+
+def _reduced(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with any partial placement reduced (a DTensor max over a
+    sequence-sharded cache is a partial max, which torch 2.11's DTensor
+    cannot carry into the sums that follow it); a plain tensor as it
+    is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(t, DTensor) or \
+            not any(p.is_partial() for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, [
+        Replicate() if p.is_partial() else p for p in t.placements])
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, length,
                      spec: AttnSpec = AttnSpec(),
@@ -304,6 +370,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     Under ``PerfOpts.decode_opt`` the cache is read in its storage dtype
     with float32 results and no float32 copy of it is made: one ``bmm``
     per sequence views its (S, Hkv, D) slice as Hkv matrices in place.
+    A DTensor cache stays where it lies: each device runs those ``bmm``s
+    over its own shard (``_on_shards``).
     """
     opt = current().decode_opt
     b, _, hq, d = q.shape
@@ -313,8 +381,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     scale = 1.0 / math.sqrt(d)
     if opt:
         qr = (q.reshape(b, hkv, g, d).float() * scale).to(k_cache.dtype)
-        scores = torch.stack([_bmm_f32(qr[i], k_cache[i].permute(1, 2, 0))
-                              for i in range(b)])
+        scores = _on_shards(lambda a, c: _seq_bmm(a, c, (1, 2, 0)),
+                            qr, k_cache, _SCORE_DIMS, (b, hkv, g, s))
     else:
         qr = q.reshape(b, hkv, g, d).float() * scale
         scores = torch.einsum("bhgd,bshd->bhgs", qr, k_cache.float())
@@ -330,9 +398,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
     def attend(p):                      # (B, Hkv, g, S) -> (B, Hkv, g, D)
         if opt:
-            p = p.to(v_cache.dtype)
-            return torch.stack([_bmm_f32(p[i], v_cache[i].transpose(0, 1))
-                                for i in range(b)])
+            return _on_shards(lambda a, c: _seq_bmm(a, c, (1, 0, 2)),
+                              p.to(v_cache.dtype), v_cache, _ATTEND_DIMS,
+                              (b, hkv, g, v_cache.shape[-1]))
         return torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
 
     if extra_kv is None:
@@ -344,7 +412,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          k_new.float())[..., 0]     # (B, Hkv, g)
     if spec.logit_softcap is not None:
         s_new = torch.tanh(s_new / spec.logit_softcap) * spec.logit_softcap
-    m = torch.maximum(scores.amax(dim=-1), s_new)
+    m = torch.maximum(_reduced(scores.amax(dim=-1)), s_new)
     p_cache = torch.exp(scores - m[..., None])
     p_new = torch.exp(s_new - m)
     denom = p_cache.sum(dim=-1) + p_new

@@ -8,8 +8,8 @@ package imports in
 a process where both are blocked, and so does every script, which gets
 through ``--help`` there (the host-only ones through ``main`` too, and
 the others refuse to run without a card); entry points asked for the default device (the LM
-model's, server's, trainer's and training CLI's too) raise when there
-is no CUDA card (the host mesh's too); and the
+model's, server's, trainer's and training CLI's too, on a host mesh
+as well) raise when there is no CUDA card (the host mesh's too); and the
 port's compile store is its own and refuses the JAX package's entries.
 """
 import ast
@@ -222,6 +222,9 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cli.main(["--arch", "gemma2-2b", "--reduced", "--workdir",
                         str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--arch", "gemma2-2b", "--reduced", "--mesh",
+                        "host", "--workdir", str(tmp_path)])
     from repro_torch.launch import mesh
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mesh.make_host_mesh()
