@@ -319,13 +319,9 @@ class LoweredExecutable:
         #: first dispatch closes the compile→dispatch flow arrow
         self._flow_key: Optional[str] = None
         self._flow_done = False
-        #: host seconds spent packing each segment's pool payload on the
-        #: last streamed ``pack`` (the per-segment weight-programming
-        #: wall time)
-        self._seg_pack_s: List[float] = []
         #: bound metric instruments for the dispatch hot path, cached
         #: per registry identity so a dispatch pays attribute access +
-        #: a float add instead of four label-key constructions
+        #: a float add instead of two label-key constructions
         self._prof: Optional[tuple] = None
         self._disp_span = f"dispatch:{self.graph.name}"
         self._ox = 1 << (self.params.act_bits - 1)
@@ -565,21 +561,14 @@ class LoweredExecutable:
         t0 = time.perf_counter()
         packed = self._pack_impl(weights)
         dt = time.perf_counter() - t0
-        nbytes = _packed_nbytes(packed)
-        name = self.graph.name
         if reg is not None:
-            reg.counter("executor_packs_total", workload=name).inc()
-            reg.counter("executor_pack_bytes_total",
-                        workload=name).inc(nbytes)
             reg.histogram("executor_pack_s").observe(dt)
-            for si, s in enumerate(self._seg_pack_s):
-                reg.histogram("executor_segment_pack_s",
-                              segment=si).observe(s)
         if tr is not None:
+            name = self.graph.name
             tr.complete(obs_trace.EXECUTOR_TRACK, name, f"pack:{name}",
                         "executor", obs_trace.now_s() - dt, dt,
-                        bytes=int(nbytes), segments=self._n_segments,
-                        streamed=self._stream)
+                        bytes=_packed_nbytes(packed),
+                        segments=self._n_segments, streamed=self._stream)
         return packed
 
     def _dev(self, a: np.ndarray, dtype=torch.int32) -> torch.Tensor:
@@ -593,9 +582,7 @@ class LoweredExecutable:
                                  f"{(cp.r, cp.c)}")
         if self._stream:
             segs: List[Dict[str, Any]] = []
-            self._seg_pack_s = []
             for si in range(self._n_segments):
-                t_seg = time.perf_counter()
                 entry = {}
                 for (seg, key), layout in self._seg_layout.items():
                     if seg != si:
@@ -605,7 +592,6 @@ class LoweredExecutable:
                     entry[key] = self._dev(self._encode(tiles),
                                            self._op_dtype)
                 segs.append(entry)
-                self._seg_pack_s.append(time.perf_counter() - t_seg)
             return {"segs": segs}
         packed: Dict[str, Any] = {}
         for name, cp in self._plans.items():
@@ -657,7 +643,8 @@ class LoweredExecutable:
     def run_batch(self, inputs: Dict[str, np.ndarray],
                   weights: Optional[Dict[str, np.ndarray]] = None,
                   shifts: Optional[Dict[str, int]] = None, *,
-                  packed: Optional[Dict[str, Any]] = None
+                  packed: Optional[Dict[str, Any]] = None,
+                  spans: Optional[obs_trace.Spans] = None
                   ) -> Dict[str, np.ndarray]:
         """N inferences in one pass: every input carries a leading batch
         axis.  Pass ``packed=self.pack(weights)`` to amortize weight
@@ -666,17 +653,29 @@ class LoweredExecutable:
         Profiling happens here, at the dispatch boundary: the whole pass,
         which copying the outputs back to numpy synchronizes, is the
         timing unit.  Disabled telemetry costs two ``is None`` checks.
+        With a recorder installed the pass is also split into spans:
+        ``executor.inputs``, ``executor.forward`` with one span per
+        graph node (and per kernel launch and host round trip inside
+        it), ``executor.outputs``, all inside the pass's own
+        ``dispatch:<graph>`` span.  They go to the caller's ``spans``
+        (its row and ids, e.g. the service's ``dispatch``), else to the
+        graph's row of the executor track.
         """
         reg = obs_metrics.active()
         tr = obs_trace.get_trace()
         if reg is None and tr is None:
             return self._run_batch_impl(inputs, weights, shifts,
                                         packed=packed)
-        t0 = time.perf_counter()
-        out = self._run_batch_impl(inputs, weights, shifts, packed=packed)
-        dt = time.perf_counter() - t0
-        n = int(next(iter(out.values())).shape[0]) if out else 0
         name = self.graph.name
+        sp = None
+        if tr is not None:
+            sp = spans if spans is not None else obs_trace.Spans(
+                tr, obs_trace.EXECUTOR_TRACK, name)
+            ts0 = obs_trace.now_s()
+        t0 = time.perf_counter()
+        out = self._run_batch_impl(inputs, weights, shifts, packed=packed,
+                                   spans=sp)
+        dt = time.perf_counter() - t0
         if reg is not None:
             prof = self._prof
             if prof is None or prof[0] is not reg:
@@ -684,44 +683,49 @@ class LoweredExecutable:
                     reg,
                     reg.counter("executor_dispatches_total",
                                 route=self.route.mode),
-                    reg.counter("executor_requests_total", workload=name),
-                    reg.counter("executor_swaps_total", workload=name),
                     reg.histogram("executor_dispatch_s",
                                   route=self.route.mode))
             prof[1].inc()
-            prof[2].inc(n)
-            if self.stats.swaps:
-                prof[3].inc(self.stats.swaps)
-            prof[4].observe(dt)
-        if tr is not None:
-            now = obs_trace.now_s()
-            tr.complete(obs_trace.EXECUTOR_TRACK, name, self._disp_span,
-                        "executor", now - dt, dt, batch=n,
-                        route=self.route.mode, segments=self._n_segments,
-                        swaps=self.stats.swaps)
+            prof[2].observe(dt)
+        if sp is not None:
+            n = int(next(iter(out.values())).shape[0]) if out else 0
+            now = sp.span(self._disp_span, ts0, batch=n,
+                          route=self.route.mode, segments=self._n_segments,
+                          swaps=self.stats.swaps)
             if self._flow_key is not None and not self._flow_done:
                 # close the compile→dispatch arrow inside this span
                 self._flow_done = True
                 tr.flow_end(obs_trace.EXECUTOR_TRACK, name, "artifact",
-                            "flow", now - dt / 2,
+                            "flow", (ts0 + now) / 2,
                             flow_id=int(self._flow_key[:12], 16),
                             key=self._flow_key[:12])
         return out
 
     def _run_batch_impl(self, inputs, weights=None, shifts=None, *,
-                        packed=None) -> Dict[str, np.ndarray]:
+                        packed=None, spans=None) -> Dict[str, np.ndarray]:
         if packed is None:
             if weights is None:
                 raise ValueError("need weights=... or packed=...")
             packed = self.pack(weights)
         shifts = shifts or {}
         sh = {name: int(shifts.get(name, 0)) for name in self._shift_names}
+        if spans is not None:
+            t = obs_trace.now_s()
         xs = {name: torch.as_tensor(np.asarray(v, np.int32),
                                     device=self.device)
               for name, v in inputs.items()}
+        if spans is not None:
+            t = spans.span("executor.inputs", t,
+                           bytes=sum(_packed_nbytes(x) for x in xs.values()))
         with torch.no_grad():
-            out = self._forward(packed, sh, xs)
-        return {name: v.cpu().numpy() for name, v in out.items()}
+            out = self._forward(packed, sh, xs, spans)
+        if spans is not None:
+            t = spans.span("executor.forward", t)
+        res = {name: v.cpu().numpy() for name, v in out.items()}
+        if spans is not None:
+            spans.span("executor.outputs", t,
+                       bytes=sum(int(v.nbytes) for v in res.values()))
+        return res
 
     # -- the batched program ----------------------------------------------
     def _pool_slice(self, segs, g: _StreamGroup,
@@ -747,20 +751,26 @@ class LoweredExecutable:
             loaded[g.key] = g.seg
         return pool[g.lo:g.hi]
 
-    def _forward(self, packed, shifts, inputs):
+    def _forward(self, packed, shifts, inputs, spans=None):
         loaded: Dict[str, int] = {}          # pool key -> resident segment
         tensors: Dict[str, Any] = dict(inputs)
         for node in self.graph.nodes:
+            if spans is not None:
+                t0 = obs_trace.now_s()
             xs = [tensors[t] for t in node.inputs]
             if node.is_cim:
                 tensors[node.outputs[0]] = self._cim(
-                    node, xs[0], packed, shifts[node.name], loaded)
+                    node, xs[0], packed, shifts[node.name], loaded, spans)
             elif node.op_type == "Split":
                 for name, part in zip(node.outputs,
                                       self._split(node, xs[0])):
                     tensors[name] = part
             else:
-                tensors[node.outputs[0]] = self._dcom(node, xs, shifts)
+                tensors[node.outputs[0]] = self._dcom(node, xs, shifts,
+                                                      spans)
+            if spans is not None:
+                spans.span(node.op_type, t0, node=node.name,
+                           cim=node.is_cim)
         return {t: tensors[t] for t in self.graph.outputs}
 
     def _rows(self, node: Node, x):
@@ -774,7 +784,8 @@ class LoweredExecutable:
             return x.reshape(n, -1)[:, cp.im2col_idx]
         return x[:, None, :] if cp.vector_in else x
 
-    def _cim(self, node: Node, x, packed, sh: int, loaded: Dict[str, int]):
+    def _cim(self, node: Node, x, packed, sh: int, loaded: Dict[str, int],
+             spans=None):
         cp = self._plans[node.name]
         rows = self._rows(node, x)                     # (N, M, R)
         n, m, _ = rows.shape
@@ -806,8 +817,14 @@ class LoweredExecutable:
                 else:
                     w_u = packed[node.name][g.key]["w"]
                     sw = packed[node.name][g.key]["sw"]
+                if spans is not None:
+                    t0 = obs_trace.now_s()
                 y_u = cim_mvm_tiles(xt, w_u, self.params,
                                     mode=self.route.mode)
+                if spans is not None:
+                    spans.span("cim_mvm", t0, t=int(xt.shape[0]),
+                               m=int(xt.shape[1]), r=int(xt.shape[2]),
+                               c=int(w_u.shape[2]), route=self.route.mode)
                 sx = xt.sum(dim=-1, keepdim=True, dtype=torch.int32)
                 y = y_u - self._ow * sx - self._ox * sw + bias
                 acc.index_add_(1, col_idx,
@@ -841,7 +858,7 @@ class LoweredExecutable:
         oh, ow = self.graph.shapes[node.outputs[0]][1:]
         return red.reshape(n, c, oh, ow)
 
-    def _dcom(self, node: Node, xs: List, shifts):
+    def _dcom(self, node: Node, xs: List, shifts, spans=None):
         t = node.op_type
         if t == "Relu":
             return torch.clamp(xs[0], min=0)
@@ -882,9 +899,14 @@ class LoweredExecutable:
         # float-reference ops: the NumPy float64 path is the contract, so
         # take a host round-trip through it (elementwise / last-axis only,
         # hence batch-transparent)
+        if spans is not None:
+            t0 = obs_trace.now_s()
         y = _float_dcom(t, [xs[0].cpu().numpy()], node)
         y = np.clip(np.round(y * 32.0), -128, 127).astype(np.int32)
-        return torch.as_tensor(y, device=self.device)
+        out = torch.as_tensor(y, device=self.device)
+        if spans is not None:
+            spans.span("executor.host_dcom", t0, bytes=int(y.nbytes))
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -943,7 +965,6 @@ def lower(plan: SchedulePlan, program: Program,
         hit = _LOWER_CACHE.get(key)
         if hit is not None:
             _LOWER_CACHE.move_to_end(key)
-            obs_metrics.count("executor_lower_cache_hits_total")
             return hit
     t0 = time.perf_counter()
     exe = LoweredExecutable(plan, program, params, route=route, device=dev,

@@ -28,12 +28,22 @@ Mapping onto the trace model:
 
 Units and clocks: the recorder's timeline is whatever clock the caller
 drives — the serving tier passes its service clock (wall time in
-production, synthetic in tests); the compiler/executor/DSE hooks use
-the process clock started by :func:`install` (``now_s``).  Under a
+production, synthetic in tests); the compiler/executor/DSE hooks and
+the CIM service's dispatch spans use the process clock started by
+:func:`install` (``now_s``, ``time.perf_counter`` since then).  Under a
 wall clock all tiers coincide; under a synthetic service clock the
 serving rows show the model's own accounting next to the host-side
 rows.  Event ``ts``/``dur`` are emitted in **microseconds** as the
 format requires.
+
+One clock with ``torch.profiler``: :func:`install` reads
+``time.perf_counter`` and ``time.time_ns`` together, stores the Unix
+time on the recorder (``anchor``), and the saved trace carries it under
+``otherData["clock"]``.  ``ts0_unix_ns`` is the Unix time of ``ts`` 0 of
+the process clock, so a span's Unix time is ``ts0_unix_ns + ts * 1000``
+and its place on a Kineto trace's timeline is that less the trace's
+``baseTimeNanoseconds``, over 1000 (a ``torch.profiler`` export, CPU or
+CUDA activity, counts its ``ts`` from that base on the Unix clock).
 
 Thread-safety: a recorder is plain mutable state owned by one thread;
 share one recorder across the tiers of one run, not across concurrent
@@ -79,6 +89,9 @@ class TraceRecorder:
 
     def __init__(self):
         self.events: List[dict] = []
+        #: ``{"ts0_unix_ns": ...}``, set by :func:`install`: the Unix
+        #: time of ``ts`` 0 of the process clock
+        self.anchor: Optional[Dict[str, int]] = None
         self._pids: Dict[str, int] = {}          # track name -> pid
         self._tids: Dict[tuple, int] = {}        # (pid, tenant) -> tid
 
@@ -115,12 +128,17 @@ class TraceRecorder:
                  ts_s: float, dur_s: float, **args) -> None:
         """One span (``ph: "X"``): starts at ``ts_s``, lasts ``dur_s``
         (clock seconds; negative durations are clamped to 0)."""
+        self._complete(self.register_chip(chip),
+                       self.register_tenant(chip, tenant), name, cat, ts_s,
+                       dur_s, args)
+
+    def _complete(self, pid: int, tid: int, name: str, cat: str,
+                  ts_s: float, dur_s: float, args: dict) -> None:
+        """``complete`` on a registered row (``Spans`` keeps its ids)."""
         self.events.append({
             "name": name, "cat": cat, "ph": "X",
             "ts": _us(ts_s), "dur": _us(max(0.0, dur_s)),
-            "pid": self.register_chip(chip),
-            "tid": self.register_tenant(chip, tenant),
-            "args": args})
+            "pid": pid, "tid": tid, "args": args})
 
     def instant(self, chip: str, name: str, cat: str, ts_s: float,
                 tenant: Optional[str] = None, **args) -> None:
@@ -170,7 +188,10 @@ class TraceRecorder:
     def to_dict(self) -> dict:
         """The JSON-object trace (``traceEvents`` array form) — the shape
         both ``chrome://tracing`` and Perfetto load directly."""
-        return {"traceEvents": list(self.events), "displayTimeUnit": "ms"}
+        out = {"traceEvents": list(self.events), "displayTimeUnit": "ms"}
+        if self.anchor is not None:
+            out["otherData"] = {"clock": dict(self.anchor)}
+        return out
 
     def save(self, path: Union[str, Path]) -> Path:
         """Write the trace as JSON **atomically** (write-temp-then-rename,
@@ -197,6 +218,33 @@ class TraceRecorder:
 
     def __len__(self) -> int:
         return len(self.events)
+
+
+class Spans:
+    """The spans of one dispatch, on one thread row of ``recorder``.
+
+    Timed on the process clock (``now_s``); every span carries ``ids``
+    (e.g. ``dispatch=7``) in its ``args``.  Built only while a recorder
+    is installed, so an untraced dispatch makes none.
+    """
+
+    __slots__ = ("recorder", "pid", "tid", "ids")
+
+    def __init__(self, recorder: TraceRecorder, chip: str, tenant: str,
+                 **ids):
+        self.recorder = recorder
+        self.pid = recorder.register_chip(chip)
+        self.tid = recorder.register_tenant(chip, tenant)
+        self.ids = ids
+
+    def span(self, name: str, t0: float, /, cat: str = "executor",
+             **args) -> float:
+        """One span ``name`` from ``t0`` (``now_s`` seconds) to now;
+        returns now, the next span's start."""
+        t = now_s()
+        self.recorder._complete(self.pid, self.tid, name, cat, t0, t - t0,
+                                {**self.ids, **args})
+        return t
 
 
 def validate_chrome_trace(trace: dict) -> None:
@@ -276,7 +324,10 @@ def install(recorder: Optional[TraceRecorder] = None) -> TraceRecorder:
     events into the identical timeline."""
     global _TRACE, _T0
     _TRACE = recorder if recorder is not None else TraceRecorder()
+    # one reading of each clock, back to back: perf_counter is the
+    # spans' clock, the Unix time the profiler's
     _T0 = time.perf_counter()
+    _TRACE.anchor = {"ts0_unix_ns": time.time_ns()}
     return _TRACE
 
 

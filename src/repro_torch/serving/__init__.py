@@ -13,7 +13,7 @@ from .placement import (FleetPlan, TenancyPlan,                 # noqa: F401
 from .engine import EnginePool, points_from_campaign            # noqa: F401
 from .batcher import (DEFAULT_BUCKETS, Batch, DynamicBatcher,   # noqa: F401
                       bucket_for)
-from .trace import (TraceRecorder, load_trace,                  # noqa: F401
+from ..obs.trace import (TraceRecorder, load_trace,             # noqa: F401
                     validate_chrome_trace)
 from .traffic import TrafficModel, synthetic_trace              # noqa: F401
 from .fleet import (AdmissionError, ChipFault, CimCluster,      # noqa: F401

@@ -19,10 +19,20 @@ multi-tenant fleet); ``serve_padded`` is the fleet batcher's entry
 point — it pads a partial batch up to a bucket size by repeating the
 last row, so every ragged queue drain of a bucket runs one batch shape.
 
-Units and clocks: ``dispatch``/``serve_padded`` return **wall-clock
-seconds** (``time.time()`` around the device pass, which ends when the
-outputs reach the host); the compiled plan's latency/energy estimates
-are **compiler cycles/pJ** and never mix into serve times.
+Units and clocks: ``dispatch``/``serve_padded`` return **seconds of
+``time.perf_counter()``** around the timed pass (which ends when the
+outputs reach the host and are handed to the requests); the compiled
+plan's latency/energy estimates are **compiler cycles/pJ** and never mix
+into serve times.
+
+Tracing: with a recorder installed (``obs.trace.install``) every pass of
+``dispatch`` is a ``service.dispatch`` span (``args``: ``batch``,
+``padded_to``, ``warm`` on a shape's first pass) holding
+``service.stack`` (stacking and padding the rows), the executor's
+spans (``LoweredExecutable.run_batch``) and ``service.answers`` (each
+row handed to its request), all on the graph's row of the executor
+track and carrying the service's sequence number of the pass as
+``dispatch``.  Without one a dispatch pays one ``is None`` check.
 Thread-safety: ``stats`` and the warm-shape set are plain mutable state —
 one service instance per serving thread.
 """
@@ -37,6 +47,7 @@ from ..core import compiler
 from ..core.abstraction import CIMArch
 from ..core.graph import Graph
 from ..kernels.backend import resolve_device
+from ..obs import trace as obs_trace
 from ..kernels.cim_mvm import CimMvmParams, cim_mvm_params
 from .common import CimRequest, ServiceStats  # noqa: F401  (re-export)
 
@@ -84,6 +95,7 @@ class CimBatchService:
             device=self.device)
         self.stats = ServiceStats()
         self._warmed: set = set()        # batch sizes already served once
+        self._traced = 0                 # traced passes: their span ids
         kwargs = dict(compile_kwargs or {})
         kwargs.setdefault("level", level)
         if use_executor:
@@ -147,28 +159,52 @@ class CimBatchService:
         if not batch:
             return 0.0
         shape = pad_to if (pad_to and self.use_executor) else len(batch)
+        tr = obs_trace.get_trace()
         if self.use_executor and shape not in self._warmed:
-            self._serve_batch(batch, pad_to=pad_to)
+            self._pass(tr, batch, pad_to, shape, warm=True)
             self._warmed.add(shape)
-        t0 = time.time()
-        self._serve_batch(batch, pad_to=pad_to)
-        return time.time() - t0
+        t0 = time.perf_counter()
+        self._pass(tr, batch, pad_to, shape)
+        return time.perf_counter() - t0
+
+    def _pass(self, tr, batch: List[CimRequest], pad_to: Optional[int],
+              shape: int, warm: bool = False) -> None:
+        """One pass of ``dispatch``; with a recorder ``tr``, inside its
+        ``service.dispatch`` span."""
+        if tr is None:
+            self._serve_batch(batch, pad_to=pad_to)
+            return
+        self._traced += 1
+        spans = obs_trace.Spans(tr, obs_trace.EXECUTOR_TRACK,
+                                self.graph.name, dispatch=self._traced)
+        t0 = obs_trace.now_s()
+        self._serve_batch(batch, pad_to=pad_to, spans=spans)
+        spans.span("service.dispatch", t0, cat="service", batch=len(batch),
+                   padded_to=shape, **({"warm": True} if warm else {}))
 
     def _serve_batch(self, batch: List[CimRequest],
-                     pad_to: Optional[int] = None) -> None:
+                     pad_to: Optional[int] = None, spans=None) -> None:
         if not self.use_executor:
             for r in batch:
                 out = self._sim.run({k: np.asarray(v)
                                      for k, v in r.inputs.items()})
                 r.outputs = {t: np.asarray(out[t]) for t in self.graph.outputs}
             return
+        if spans is not None:
+            t0 = obs_trace.now_s()
         pad = max(0, (pad_to or len(batch)) - len(batch))
         stacked = {}
         for name in self.graph.inputs:
             rows = [np.asarray(r.inputs[name]) for r in batch]
             rows += [rows[-1]] * pad      # pad-to-bucket: repeat last row
             stacked[name] = np.stack(rows)
+        if spans is not None:
+            spans.span("service.stack", t0, cat="service")
         outs = self._exe.run_batch(stacked, packed=self._packed,
-                                   shifts=self.shifts)
+                                   shifts=self.shifts, spans=spans)
+        if spans is not None:
+            t0 = obs_trace.now_s()
         for i, r in enumerate(batch):
             r.outputs = {t: outs[t][i] for t in self.graph.outputs}
+        if spans is not None:
+            spans.span("service.answers", t0, cat="service")

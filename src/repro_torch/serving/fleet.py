@@ -53,7 +53,7 @@ from .common import CimRequest, ServiceStats
 from .engine import EnginePool
 from .placement import (FleetPlan, TenancyPlan, TenantSpec, plan_fleet,
                         plan_tenancy)
-from .trace import TraceRecorder
+from ..obs.trace import TraceRecorder
 
 
 class AdmissionError(RuntimeError):
