@@ -640,15 +640,24 @@ class LoweredExecutable:
         out = self.run_batch(batched, weights, shifts, packed=packed)
         return {k: v[0] for k, v in out.items()}
 
-    def run_batch(self, inputs: Dict[str, np.ndarray],
+    def run_batch(self, inputs: Dict[str, Any],
                   weights: Optional[Dict[str, np.ndarray]] = None,
                   shifts: Optional[Dict[str, int]] = None, *,
                   packed: Optional[Dict[str, Any]] = None,
-                  spans: Optional[obs_trace.Spans] = None
+                  spans: Optional[obs_trace.Spans] = None,
+                  inputs_copied: Optional["torch.cuda.Event"] = None
                   ) -> Dict[str, np.ndarray]:
         """N inferences in one pass: every input carries a leading batch
         axis.  Pass ``packed=self.pack(weights)`` to amortize weight
         packing across calls.
+
+        An input is a numpy array (cast as ``np.asarray(v, np.int32)``)
+        or an int32 host tensor, which a caller may reuse from pass to
+        pass: a pinned one is copied to the device without blocking, and
+        ``inputs_copied``, if given, is recorded on the current stream
+        once every input is on the device, so the caller can wait on it
+        before writing the tensor again.  No output shares memory with a
+        tensor input.
 
         Profiling happens here, at the dispatch boundary: the whole pass,
         which copying the outputs back to numpy synchronizes, is the
@@ -665,7 +674,8 @@ class LoweredExecutable:
         tr = obs_trace.get_trace()
         if reg is None and tr is None:
             return self._run_batch_impl(inputs, weights, shifts,
-                                        packed=packed)
+                                        packed=packed,
+                                        inputs_copied=inputs_copied)
         name = self.graph.name
         sp = None
         if tr is not None:
@@ -674,7 +684,7 @@ class LoweredExecutable:
             ts0 = obs_trace.now_s()
         t0 = time.perf_counter()
         out = self._run_batch_impl(inputs, weights, shifts, packed=packed,
-                                   spans=sp)
+                                   spans=sp, inputs_copied=inputs_copied)
         dt = time.perf_counter() - t0
         if reg is not None:
             prof = self._prof
@@ -702,7 +712,8 @@ class LoweredExecutable:
         return out
 
     def _run_batch_impl(self, inputs, weights=None, shifts=None, *,
-                        packed=None, spans=None) -> Dict[str, np.ndarray]:
+                        packed=None, spans=None,
+                        inputs_copied=None) -> Dict[str, np.ndarray]:
         if packed is None:
             if weights is None:
                 raise ValueError("need weights=... or packed=...")
@@ -711,17 +722,26 @@ class LoweredExecutable:
         sh = {name: int(shifts.get(name, 0)) for name in self._shift_names}
         if spans is not None:
             t = obs_trace.now_s()
-        xs = {name: torch.as_tensor(np.asarray(v, np.int32),
-                                    device=self.device)
-              for name, v in inputs.items()}
+        xs, held, pinned = {}, [], False
+        for name, v in inputs.items():
+            if isinstance(v, torch.Tensor) and v.dtype == torch.int32:
+                pin = v.is_pinned()
+                pinned |= pin
+                xs[name] = v.to(self.device, non_blocking=pin)
+                held.append(v)
+            else:
+                xs[name] = torch.as_tensor(np.asarray(v, np.int32),
+                                           device=self.device)
+        if inputs_copied is not None:
+            inputs_copied.record()
         if spans is not None:
-            t = spans.span("executor.inputs", t,
+            t = spans.span("executor.inputs", t, pinned=pinned,
                            bytes=sum(_packed_nbytes(x) for x in xs.values()))
         with torch.no_grad():
             out = self._forward(packed, sh, xs, spans)
         if spans is not None:
             t = spans.span("executor.forward", t)
-        res = {name: v.cpu().numpy() for name, v in out.items()}
+        res = {name: _host_copy(v, held) for name, v in out.items()}
         if spans is not None:
             spans.span("executor.outputs", t,
                        bytes=sum(int(v.nbytes) for v in res.values()))
@@ -919,6 +939,19 @@ _LOWER_CACHE_MAX = 32
 
 def clear_lower_cache() -> None:
     _LOWER_CACHE.clear()
+
+
+def _host_copy(v: torch.Tensor, held: List[torch.Tensor]) -> np.ndarray:
+    """``v`` as a host numpy array that shares no memory with ``held``
+    (the caller's input tensors, which it may overwrite): a device
+    tensor's ``.cpu()`` is a fresh copy, a host tensor is copied only
+    where it is a view of one of them."""
+    a = v.cpu().numpy()
+    if v.device.type == "cpu" and held:
+        ptr = v.untyped_storage().data_ptr()
+        if any(h.untyped_storage().data_ptr() == ptr for h in held):
+            a = a.copy()
+    return a
 
 
 def _packed_nbytes(obj: Any) -> int:

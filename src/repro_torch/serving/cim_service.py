@@ -28,28 +28,54 @@ into serve times.
 Tracing: with a recorder installed (``obs.trace.install``) every pass of
 ``dispatch`` is a ``service.dispatch`` span (``args``: ``batch``,
 ``padded_to``, ``warm`` on a shape's first pass) holding
-``service.stack`` (stacking and padding the rows), the executor's
-spans (``LoweredExecutable.run_batch``) and ``service.answers`` (each
-row handed to its request), all on the graph's row of the executor
-track and carrying the service's sequence number of the pass as
+``service.stack`` (stacking and padding the rows; ``staged``:
+``"allocated"`` or ``"reused"``), the executor's spans
+(``LoweredExecutable.run_batch``) and ``service.answers`` (each row
+handed to its request), all on the graph's row of the executor track
+and carrying the service's sequence number of the pass as
 ``dispatch``.  Without one a dispatch pays one ``is None`` check.
-Thread-safety: ``stats`` and the warm-shape set are plain mutable state —
-one service instance per serving thread.
+
+Input staging: the executor path stacks each batch into a host buffer
+of its padded shape, one per graph input, allocated on the shape's
+first (warm) pass and rewritten in place on every later one, so a
+steady-state dispatch allocates nothing.  On a CUDA device the buffers
+are pinned, and the executor copies them to the card without a bounce
+through a pageable staging area; it records the buffers' event after
+that copy, and the next pass of the shape waits on it before writing.
+Rows are cast to int32 as ``np.asarray(row, np.int32)`` casts them.
+Each pass counts ``cim_service_staging_total{outcome=...}`` in an
+enabled ``obs.metrics`` registry.
+
+Thread-safety: ``stats``, the warm-shape set and the staging buffers are
+plain mutable state — one service instance per serving thread.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..core import compiler
 from ..core.abstraction import CIMArch
 from ..core.graph import Graph
 from ..kernels.backend import resolve_device
+from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from ..kernels.cim_mvm import CimMvmParams, cim_mvm_params
 from .common import CimRequest, ServiceStats  # noqa: F401  (re-export)
+
+
+@dataclasses.dataclass
+class _Staging:
+    """One padded batch shape's host input buffers (int32, pinned on a
+    CUDA device) and the event recorded after their last copy to the
+    device (``None`` on the CPU)."""
+
+    tensors: Dict[str, torch.Tensor]
+    copied: Optional["torch.cuda.Event"]
 
 
 class CimBatchService:
@@ -95,6 +121,7 @@ class CimBatchService:
             device=self.device)
         self.stats = ServiceStats()
         self._warmed: set = set()        # batch sizes already served once
+        self._staging: Dict[int, _Staging] = {}   # padded batch -> buffers
         self._traced = 0                 # traced passes: their span ids
         kwargs = dict(compile_kwargs or {})
         kwargs.setdefault("level", level)
@@ -192,19 +219,39 @@ class CimBatchService:
             return
         if spans is not None:
             t0 = obs_trace.now_s()
-        pad = max(0, (pad_to or len(batch)) - len(batch))
-        stacked = {}
-        for name in self.graph.inputs:
-            rows = [np.asarray(r.inputs[name]) for r in batch]
-            rows += [rows[-1]] * pad      # pad-to-bucket: repeat last row
-            stacked[name] = np.stack(rows)
+        st, outcome = self._stage(batch, max(pad_to or 0, len(batch)))
+        obs_metrics.count("cim_service_staging_total", outcome=outcome)
         if spans is not None:
-            spans.span("service.stack", t0, cat="service")
-        outs = self._exe.run_batch(stacked, packed=self._packed,
-                                   shifts=self.shifts, spans=spans)
+            spans.span("service.stack", t0, cat="service", staged=outcome)
+        outs = self._exe.run_batch(st.tensors, packed=self._packed,
+                                   shifts=self.shifts, spans=spans,
+                                   inputs_copied=st.copied)
         if spans is not None:
             t0 = obs_trace.now_s()
         for i, r in enumerate(batch):
             r.outputs = {t: outs[t][i] for t in self.graph.outputs}
         if spans is not None:
             spans.span("service.answers", t0, cat="service")
+
+    def _stage(self, batch: List[CimRequest], n: int):
+        """Write ``batch``'s rows, padded to ``n`` by repeating the last,
+        into the staging buffers of that shape; returns the buffers and
+        whether they were ``"allocated"`` for it or ``"reused"``."""
+        st = self._staging.get(n)
+        if st is None:
+            outcome = "allocated"
+            pin = self.device.type == "cuda"
+            st = self._staging[n] = _Staging(
+                {name: torch.empty((n, *shape), dtype=torch.int32,
+                                   pin_memory=pin)
+                 for name, shape in self.graph.inputs.items()},
+                torch.cuda.Event() if pin else None)
+        else:
+            outcome = "reused"
+            if st.copied is not None:
+                st.copied.synchronize()   # the last copy out has finished
+        for name, buf in st.tensors.items():
+            rows = [r.inputs[name] for r in batch]
+            rows += [rows[-1]] * (n - len(rows))  # pad-to-bucket: repeat last
+            np.stack(rows, out=buf.numpy(), casting="unsafe")
+        return st, outcome

@@ -174,8 +174,8 @@ def test_no_span_and_no_series_with_recorder_off(served, monkeypatch):
     assert obs_metrics.active() is None
     svc.dispatch(reqs([0, 3]))
     assert rec.events == [] and obs_metrics.active() is None
-    # with a registry on, a dispatch feeds exactly its two series, and a
-    # recorder beside it adds none
+    # with a registry on, a dispatch feeds exactly its three series, and
+    # a recorder beside it adds none
     series = []
     for traced in (False, True):
         monkeypatch.undo()
@@ -193,7 +193,8 @@ def test_no_span_and_no_series_with_recorder_off(served, monkeypatch):
                              for k in snap.get(kind, {})))
     assert series[0] == series[1]
     assert [s.split("{")[0] for s in series[0]] == [
-        "executor_dispatch_s", "executor_dispatches_total"]
+        "cim_service_staging_total", "executor_dispatch_s",
+        "executor_dispatches_total"]
 
 
 def test_padded_shape_warms_under_the_same_spans(served, recorder):
@@ -218,6 +219,29 @@ def test_padded_shape_warms_under_the_same_spans(served, recorder):
         inputs = next(e for e in mine if e["name"] == "executor.inputs")
         assert inputs["args"]["bytes"] == 3 * 3 * 32 * 32 * 4
     assert all(r.outputs["fc.out"].shape == (1000,) for r in batch)
+
+
+def test_staging_args_on_the_spans(served, recorder):
+    """``service.stack`` says whether the pass allocated its shape's
+    buffers or reused them, ``executor.inputs`` whether its inputs were
+    pinned (never on the CPU); names and nesting are as before."""
+    svc, reqs, _ = served
+    svc.dispatch(reqs([1, 2]), pad_to=5)     # a new shape: warm pass first
+    svc.dispatch(reqs([3, 4]))
+    ev = _spans(recorder)
+    stack = [e["args"]["staged"] for e in ev if e["name"] == "service.stack"]
+    assert stack == ["allocated", "reused", "reused"]
+    assert [e["args"]["pinned"] for e in ev
+            if e["name"] == "executor.inputs"] == [False] * 3
+    for top in (e for e in ev if e["name"] == "service.dispatch"):
+        mine = [e for e in ev
+                if e["args"]["dispatch"] == top["args"]["dispatch"]]
+        parent = _tree(mine)
+        up = {mine[i]["name"]: (mine[p]["name"] if p is not None else None)
+              for i, p in parent.items()}
+        assert up["service.stack"] == up["service.answers"] == \
+            "service.dispatch"
+        assert up["executor.inputs"] == f"dispatch:{svc.graph.name}"
 
 
 def test_run_batch_alone_spans_the_graphs_row(served, recorder):
@@ -347,3 +371,39 @@ def test_program_span_lands_on_the_profiler_timeline(recorder, tmp_path):
         p, s = probes[f"probe{i}"], moved[f"span{i}"]
         assert s["ts"] - 50 <= float(p["ts"])
         assert float(p["ts"]) + float(p["dur"]) <= s["ts"] + s["dur"] + 50
+
+
+# ------------------------------------------------------------- on the card
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: pinned staging and the "
+                    "crossbar-MVM kernel have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_card_stages_pinned_and_matches_the_plain_route(card, served,
+                                                        recorder):
+    """On the card the staging buffer is pinned and ``executor.inputs``
+    says so; two back-to-back dispatches of different batches, the second
+    overwriting the buffer the first was copied from, answer as the CPU
+    service does (the plain route, bit-exact)."""
+    ref, reqs, _ = served
+    svc = CimBatchService(ref.graph, ref.arch, max_batch=BATCH,
+                          weights=ref.weights, shifts=ref.shifts, device=card)
+    batches = [reqs([0, 5]), reqs([6, 3])]
+    svc.dispatch(batches[0])
+    svc.dispatch(batches[1])
+    name = next(iter(ref.graph.inputs))
+    assert svc._staging[BATCH].tensors[name].is_pinned()
+    assert [e["args"]["pinned"] for e in _spans(recorder)
+            if e["name"] == "executor.inputs"] == [True] * 3
+    obs_trace.uninstall()
+    for got, idx in zip(batches, ([0, 5], [6, 3])):
+        want = reqs(idx)
+        ref.dispatch(want)
+        for a, b in zip(got, want):
+            for t in ref.graph.outputs:
+                np.testing.assert_array_equal(a.outputs[t], b.outputs[t])
