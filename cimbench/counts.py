@@ -49,9 +49,10 @@ def launch_bound_s(shapes: Iterable[Tuple[int, int, int, int]], xb,
 
 def windows(layers: Sequence[Dict], in_shape) -> Dict[str, int]:
     """MVM rows one image gives each crossbar layer: output positions of
-    a convolution, one for a fully connected layer."""
-    _, h, w = in_shape
-    hw = {"input": (h, w)}
+    a convolution, a fully connected layer's ``rows`` (1 where it states
+    none; a Gemm over tokens states one row a token).  ``in_shape`` is an
+    image's (C, H, W) or any other input's shape."""
+    hw = {"input": tuple(in_shape[1:])} if len(in_shape) == 3 else {}
     out = {}
     for layer in layers:
         src = hw.get(layer["inputs"][0])
@@ -63,7 +64,7 @@ def windows(layers: Sequence[Dict], in_shape) -> Dict[str, int]:
             if layer["op"] == "conv":
                 out[layer["name"]] = oh * ow
         elif layer["op"] == "fc":
-            out[layer["name"]] = 1
+            out[layer["name"]] = layer.get("rows", 1)
         elif src is not None and layer["op"] in ("relu", "add"):
             hw[layer["output"]] = src
     return out

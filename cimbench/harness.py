@@ -7,7 +7,17 @@ belongs to one configuration, traffic mix or per-layer metric is a file
 of its own, found by name:
 
 * ``BENCHMARK.json``'s ``configs[].file``: the configuration's sizes and
-  crossbar, with ``family`` naming its plain model in ``models/``;
+  crossbar, with ``family`` naming its plain model ``models/<family>.py``,
+  which says everything model-specific: ``layers(cfg)``, the plain layer
+  list ``reference`` runs (a fully connected layer may state ``rows``,
+  its MVM rows an image, 1 by default); ``input_shape(cfg)``, one
+  input's shape; ``build_kwargs(cfg)``, the keyword arguments of the
+  served graph's builder ``get_workload(cfg["workload"], ...)``; and
+  ``OPS``, op name to a plain-torch ``fn(xs, layer)``, for the ops
+  ``reference`` lacks.  A layer of any op that states
+  ``"requant": true`` has its accumulator requantised by a shift
+  calibrated as a convolution's is.  A family module imports torch and
+  the standard library only;
 * ``traffic/<traffic>.json``: the batch of the closed loop of one client;
 * ``metrics/<name>.py``: a ``read(readings)`` that returns the per-layer
   metric or ``None`` where it finds nothing to read.
@@ -72,6 +82,11 @@ class Cell:
     @property
     def layers(self) -> List[Dict]:
         return self.model.layers(self.config)
+
+    @property
+    def ops(self) -> Dict[str, Callable]:
+        """The family's operators for ops the reference lacks."""
+        return getattr(self.model, "OPS", {})
 
     @property
     def outputs(self) -> List[str]:
@@ -165,8 +180,7 @@ def program_graph(cell: Cell):
     from repro_torch.kernels.cim_mvm import cim_mvm_params
     from repro_torch.workloads import get_workload
     cfg = cell.config
-    graph = get_workload(cfg["workload"], in_hw=cfg["in_hw"],
-                         n_classes=cfg["n_classes"])
+    graph = get_workload(cfg["workload"], **cell.model.build_kwargs(cfg))
     arch = get_arch(cfg["arch"])
     got = [(n.name, tuple(weight_matrix_shape(n))) for n in graph.cim_nodes]
     if list(graph.inputs.values()) != [cell.in_shape] or \
@@ -326,7 +340,7 @@ def reference_outputs(cell: Cell, inp: Inputs, device, *,
                         torch.as_tensor(inp.calib),
                         torch.as_tensor(inp.pool), cell.xb, device=device,
                         block=REFERENCE_BLOCK, outputs=cell.outputs,
-                        keep_bits=keep_bits)
+                        keep_bits=keep_bits, ops=cell.ops)
     return {name: v.numpy() for name, v in out.items()}
 
 

@@ -62,3 +62,8 @@ def layers(cfg: Dict) -> List[Dict]:
 
 def input_shape(cfg: Dict):
     return (cfg["in_channels"], cfg["in_hw"], cfg["in_hw"])
+
+
+def build_kwargs(cfg: Dict) -> Dict:
+    """The served graph builder's keyword arguments."""
+    return {"in_hw": cfg["in_hw"], "n_classes": cfg["n_classes"]}

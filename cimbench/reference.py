@@ -16,10 +16,14 @@ Semantics, per the configuration's crossbar:
   ``2**adc_bits - 1``;
 * phases, slices and row groups are shift-added; the rank-1 offset
   correction is applied digitally;
-* every CIM layer and every Add requantises its int accumulator to int8
-  by an arithmetic right shift and a clamp to [-128, 127]; the shift is
-  the least that brings the calibration image's largest magnitude under
-  128.
+* every CIM layer and every Add, and any layer that states
+  ``"requant": true``, requantises its int accumulator to int8 by an
+  arithmetic right shift and a clamp to [-128, 127]; the shift is the
+  least that brings the calibration image's largest magnitude under 128.
+
+An op this module does not know is looked up in the ``ops`` a caller
+passes (a configuration family's ``OPS``): ``fn(xs, layer)`` from the
+layer's input tensors to its output, plain torch like this module.
 
 Where the ADC can never saturate the MVM is the exact integer product.
 Every float64 sum here stays far inside float64's exact-integer range.
@@ -88,8 +92,9 @@ def quantize(v: torch.Tensor, bits: int, keep: int) -> torch.Tensor:
 
 
 class Mvm:
-    """Signed (N, R) x (R, C) -> (N, C) int64 products under one
-    crossbar, for one weight matrix (its planes built once)."""
+    """Signed (..., R) x (R, C) -> (..., C) int64 products under one
+    crossbar, for one weight matrix (its planes built once): every
+    leading dimension of the input is a row of the product."""
 
     def __init__(self, w: torch.Tensor, xb: Crossbar, keep_bits: int):
         self.xb = xb
@@ -114,6 +119,11 @@ class Mvm:
             for s in range(xb.slices)])
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-1]
+        return self._rows(x.reshape(-1, self.r)).reshape(*lead, self.c)
+
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, R) -> (N, C)."""
         xb = self.xb
         x = quantize(x.to(torch.int64), xb.act_bits, self.keep)
         if self.exact:
@@ -163,28 +173,27 @@ def maxpool(x: torch.Tensor, layer: Dict) -> torch.Tensor:
 
 def forward(layers: Sequence[Dict], mvms: Dict[str, Mvm], x: torch.Tensor,
             shifts: Optional[Dict[str, int]] = None,
-            outputs: Sequence[str] = ()
+            outputs: Sequence[str] = (), ops: Optional[Dict] = None
             ) -> Tuple[Dict[str, torch.Tensor], Dict[str, int]]:
-    """Run ``layers`` on ``x`` (N, ...) int ints.  Without ``shifts`` this
-    is the calibration pass: each requantising layer picks its shift from
-    what it sees.  Returns (the tensors named in ``outputs``, by default
-    the last layer's output, by name; the shifts)."""
+    """Run ``layers`` on ``x`` (N, ...) int ints, with ``ops`` (op name
+    to ``fn(xs, layer)``) for the ops this module does not know.  Without
+    ``shifts`` this is the calibration pass: each requantising layer
+    picks its shift from what it sees.  Returns (the tensors named in
+    ``outputs``, by default the last layer's output, by name; the
+    shifts)."""
     calibrating = shifts is None
     shifts = {} if shifts is None else shifts
+    ops = ops or {}
     t: Dict[str, torch.Tensor] = {"input": x.to(torch.int64)}
     for layer in layers:
         op = layer["op"]
         xs = [t[name] for name in layer["inputs"]]
-        if op in ("conv", "fc", "add"):
-            if op == "conv":
-                y = conv(xs[0], mvms[layer["name"]], layer)
-            elif op == "fc":
-                y = mvms[layer["name"]](xs[0])
-            else:
-                y = xs[0] + xs[1]
-            if calibrating:
-                shifts[layer["name"]] = pick_shift(y)
-            y = requant(y, shifts[layer["name"]])
+        if op == "conv":
+            y = conv(xs[0], mvms[layer["name"]], layer)
+        elif op == "fc":
+            y = mvms[layer["name"]](xs[0])
+        elif op == "add":
+            y = xs[0] + xs[1]
         elif op == "relu":
             y = torch.clamp(xs[0], min=0)
         elif op == "maxpool":
@@ -194,8 +203,14 @@ def forward(layers: Sequence[Dict], mvms: Dict[str, Mvm], x: torch.Tensor,
             y = torch.div(xs[0].sum(dim=(2, 3)), hw, rounding_mode="floor")
         elif op == "flatten":
             y = xs[0].reshape(xs[0].shape[0], -1)
+        elif op in ops:
+            y = ops[op](xs, layer)
         else:
             raise ValueError(f"no reference for {op!r}")
+        if op in ("conv", "fc", "add") or layer.get("requant"):
+            if calibrating:
+                shifts[layer["name"]] = pick_shift(y)
+            y = requant(y, shifts[layer["name"]])
         t[layer["output"]] = y
     return {name: t[name] for name in outputs or [layers[-1]["output"]]}, \
         shifts
@@ -216,19 +231,20 @@ def weight_shapes(layers: Sequence[Dict]) -> List[Tuple[str, Tuple[int, int]]]:
 def run(layers: Sequence[Dict], weights: Dict[str, torch.Tensor],
         calib: torch.Tensor, images: torch.Tensor, xb: Crossbar, *,
         device, block: int, outputs: Sequence[str],
-        keep_bits: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        keep_bits: Optional[int] = None,
+        ops: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
     """The tensors named in ``outputs`` for ``images`` (N, ...), in blocks
     of ``block`` images on ``device``: shifts from ``calib`` (one image),
-    then the forward.  ``keep_bits`` below ``act_bits`` computes every
-    operand on a narrower grid (the control).  Returns int64 on the CPU,
-    by name."""
+    then the forward, with ``ops`` for the ops this module does not know.
+    ``keep_bits`` below ``act_bits`` computes every crossbar operand on a
+    narrower grid (the control).  Returns int64 on the CPU, by name."""
     keep = xb.act_bits if keep_bits is None else keep_bits
     mvms = {name: Mvm(weights[name].to(device), xb, keep)
             for name, _ in weight_shapes(layers)}
     with torch.no_grad():
-        _, shifts = forward(layers, mvms, calib[None].to(device))
+        _, shifts = forward(layers, mvms, calib[None].to(device), ops=ops)
         parts = [forward(layers, mvms, images[i:i + block].to(device),
-                         shifts, outputs)[0]
+                         shifts, outputs, ops)[0]
                  for i in range(0, images.shape[0], block)]
     return {name: torch.cat([p[name].cpu() for p in parts])
             for name in outputs}

@@ -151,16 +151,50 @@ def test_mvm_matches_its_definition():
     assert torch.equal(reference.Mvm(w, exact, 8)(x), x @ w)
 
 
+@pytest.mark.parametrize("adc_bits", [5, 16])
+def test_mvm_rows_with_leading_dimensions(adc_bits):
+    """Every leading dimension is a row: (2, 3, R) rows give the (6, R)
+    call's products, where the reads saturate and where they are
+    exact."""
+    xb = reference.Crossbar(act_bits=8, weight_bits=8, dac_bits=2,
+                            cell_bits=2, parallel_row=5, adc_bits=adc_bits)
+    g = torch.Generator().manual_seed(11)
+    x = torch.randint(-128, 128, (2, 3, 12), generator=g)
+    w = torch.randint(-128, 128, (12, 4), generator=g)
+    mvm = reference.Mvm(w, xb, 8)
+    assert mvm.exact == (adc_bits == 16)
+    assert torch.equal(mvm(x), mvm(x.reshape(6, 12)).reshape(2, 3, 4))
+
+
 def test_config_files_agree_with_the_program():
     for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]:
         harness.program_graph(harness.load_cell(w["name"]))
 
 
+@pytest.mark.parametrize("name", CELLS)
+def test_program_graph_is_the_resnet18_builders(name):
+    """The family's builder arguments give the graph the builder gives
+    at 224 and 1000 classes: the same nodes and weight shapes."""
+    from repro_torch.core.graph import weight_matrix_shape
+    from repro_torch.workloads import get_workload
+    cell = harness.load_cell(name)
+    graph, _, _ = harness.program_graph(cell)
+    want = get_workload("resnet18", in_hw=224, n_classes=1000)
+    assert graph.nodes == want.nodes and graph.inputs == want.inputs
+    assert [weight_matrix_shape(n) for n in graph.cim_nodes] \
+        == [weight_matrix_shape(n) for n in want.cim_nodes]
+    assert graph.outputs == cell.outputs
+
+
 def test_reference_loads_nothing_of_the_program():
+    models = sorted(p.stem for p in (ROOT / "cimbench" / "models")
+                    .glob("*.py") if p.stem != "__init__")
+    assert "resnet" in models
     code = ("import sys; sys.path.insert(0, '.');"
             "import cimbench.reference, cimbench.counts, cimbench.trace,"
-            " cimbench.control, cimbench.models.resnet;"
-            "print(sorted({m.split('.')[0] for m in sys.modules}))")
+            " cimbench.control;"
+            + "".join(f"import cimbench.models.{m};" for m in models)
+            + "print(sorted({m.split('.')[0] for m in sys.modules}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True).stdout
     loaded = set(json.loads(out.replace("'", '"')))

@@ -56,6 +56,19 @@ def test_resnet18_operations():
     assert len(reference.weight_shapes(layers)) == 21
 
 
+def test_token_fc_counts_every_row():
+    """A Gemm over 197 tokens (ViT-B/16's 196 patches and its class
+    token) states 197 rows an image, and counts 197 single rows' work."""
+    one = [dict(op="fc", name="wq", inputs=["input"], output="wq.out",
+                cin=768, cout=768)]
+    tokens = [dict(one[0], rows=197)]
+    assert counts.windows(tokens, (197, 768)) == {"wq": 197}
+    assert counts.windows(one, (197, 768)) == {"wq": 1}
+    for xb in (JIA, ISAAC):
+        assert counts.mvm_ops_per_image(tokens, (197, 768), xb) \
+            == 197 * counts.mvm_ops_per_image(one, (197, 768), xb)
+
+
 def test_percent():
     assert counts.percent(1.0, 4.0) == 25.0
     assert counts.percent(1.0, 0.0) is None
