@@ -75,8 +75,8 @@ from ..core.mop import Program
 from ..kernels import backend
 from ..kernels.cim_mvm import CimMvmParams, cim_mvm_params, cim_mvm_tiles
 from ..kernels.cim_mvm.kernel import operand_dtype
-from .functional import (_float_dcom, chunk_offsets, spread_slice,
-                         tile_ranges, weights_numpy)
+from .functional import (_float_dcom, chunk_offsets, constant_value,
+                         spread_slice, tile_ranges, weights_numpy)
 
 _INT32_MAX = 2 ** 31 - 1
 
@@ -90,7 +90,7 @@ _SUPPORTED_DCOM = {
     "Relu", "Add", "Mul", "MaxPool", "AveragePool", "GlobalAveragePool",
     "Flatten", "Reshape", "Identity", "Transpose", "Concat", "Split",
     "MatMul", "Gelu", "Silu", "Sigmoid", "Tanh", "Softmax", "LayerNorm",
-    "RMSNorm",
+    "RMSNorm", "Constant",
 }
 
 #: ops whose lowering consumes a calibrated requantization shift
@@ -362,7 +362,12 @@ class LoweredExecutable:
         self.stats.swaps = len(self._seg_layout)
         self._pools: Optional[Dict[str, torch.Tensor]] = None
         self._pool_idx: Dict[str, torch.Tensor] = {}
+        #: each Constant node's value, on the device once; a forward
+        #: expands it over the batch without a copy
+        self._consts: Dict[str, torch.Tensor] = {}
         for node in self.graph.nodes:
+            if node.op_type == "Constant":
+                self._consts[node.name] = self._dev(constant_value(node))
             if node.op_type in ("MaxPool", "AveragePool"):
                 _, h, w = self.graph.shapes[node.inputs[0]]
                 k = node.attrs.get("kernel", 2)
@@ -774,11 +779,15 @@ class LoweredExecutable:
     def _forward(self, packed, shifts, inputs, spans=None):
         loaded: Dict[str, int] = {}          # pool key -> resident segment
         tensors: Dict[str, Any] = dict(inputs)
+        n = next(iter(inputs.values())).shape[0]
         for node in self.graph.nodes:
             if spans is not None:
                 t0 = obs_trace.now_s()
             xs = [tensors[t] for t in node.inputs]
-            if node.is_cim:
+            if node.op_type == "Constant":
+                c = self._consts[node.name]
+                tensors[node.outputs[0]] = c.expand(n, *c.shape)
+            elif node.is_cim:
                 tensors[node.outputs[0]] = self._cim(
                     node, xs[0], packed, shifts[node.name], loaded, spans)
             elif node.op_type == "Split":

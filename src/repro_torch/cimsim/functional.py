@@ -77,6 +77,18 @@ def make_weights(graph: Graph, seed: int = 0,
     return out
 
 
+def constant_value(node: Node) -> np.ndarray:
+    """The int8 value of a ``Constant`` node (a learned tensor held
+    outside the crossbars, such as ViT's class token and position
+    table), drawn by one fixed rule from its name and ``seed`` attribute:
+    ``torch.randint(-128, 128, shape)`` on the CPU from a generator
+    seeded with ``zlib.crc32(f"{name}\\x00{seed}")``.  Returned as int32."""
+    gen = torch.Generator().manual_seed(
+        zlib.crc32(f"{node.name}\x00{node.attrs['seed']}".encode()))
+    return torch.randint(-128, 128, tuple(node.attrs["shape"]),
+                         generator=gen).numpy().astype(np.int32)
+
+
 def make_input(graph: Graph, seed: int = 0, bits: int = 8) -> Dict[str, np.ndarray]:
     lo, hi = -(1 << (bits - 1)), (1 << (bits - 1))
     rng = np.random.default_rng(seed)
@@ -157,6 +169,7 @@ def _float_dcom(op_type: str, xs: List[np.ndarray],
     if op_type == "Tanh":
         return np.tanh(x)
     if op_type == "Softmax":
+        x = x * node.attrs.get("scale", 1.0)
         e = np.exp(x - x.max(axis=-1, keepdims=True))
         return e / e.sum(axis=-1, keepdims=True)
     if op_type in ("LayerNorm", "RMSNorm"):
@@ -173,6 +186,8 @@ def apply_dcom(node: Node, xs: List[np.ndarray], graph: Graph,
     t = node.op_type
     if t == "Relu":
         return np.maximum(xs[0], 0)
+    if t == "Constant":
+        return constant_value(node)
     if t == "Add":
         y = xs[0].astype(np.int64) + xs[1].astype(np.int64)
         sh = _shift_for(node, y, shifts, calibrating)
@@ -205,7 +220,8 @@ def apply_dcom(node: Node, xs: List[np.ndarray], graph: Graph,
         parts = node.attrs["parts"]
         return np.split(xs[0], np.cumsum(parts[:-1]), axis=axis)
     if t == "MatMul":
-        b = xs[1].T if node.attrs.get("transpose_b") else xs[1]
+        b = np.swapaxes(xs[1], -1, -2) if node.attrs.get("transpose_b") \
+            else xs[1]
         y = xs[0].astype(np.int64) @ b.astype(np.int64)
         sh = _shift_for(node, y, shifts, calibrating)
         return np.clip(y >> sh, -128, 127).astype(np.int32)

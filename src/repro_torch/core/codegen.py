@@ -36,6 +36,7 @@ _DCOM_OF = {
     "RoPE": "rope", "TopKRouter": "topk_router", "Softcap": "softcap",
     "Flatten": "flatten", "Reshape": "reshape", "Concat": "concat",
     "Split": "split", "Identity": "identity", "Transpose": "transpose",
+    "Constant": "const",
 }
 
 MAX_EXPANDED_OPS = 500_000
@@ -253,7 +254,7 @@ def _emit_dcom(node: Node, graph: Graph, alloc: _BufferAllocator) -> MetaOp:
     srcs = [alloc.addr(t) for t in node.inputs]
     if kind == "add" and len(srcs) >= 2:
         attrs.update(src1=srcs[0], src2=srcs[1])
-    else:
+    elif srcs:                          # a Constant reads no tensor
         attrs.update(src=srcs[0])
     attrs["dst"] = alloc.addr(node.outputs[0])
     attrs["len"] = out_elems(node, graph.shapes)

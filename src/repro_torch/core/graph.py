@@ -30,7 +30,7 @@ ALU_OPS = {
     "RMSNorm", "BatchNorm", "Add", "Mul", "MaxPool", "AveragePool",
     "GlobalAveragePool", "Flatten", "Reshape", "Concat", "Split",
     "MatMul", "Embedding", "SSMScan", "RoPE", "TopKRouter", "Softcap",
-    "Identity", "Transpose",
+    "Identity", "Transpose", "Constant",
 }
 KNOWN_OPS = CIM_OPS | ALU_OPS
 
@@ -211,6 +211,9 @@ def _conv_out_hw(h: int, w: int, k: int, stride: int, pad: int) -> Tuple[int, in
 
 def infer_node_shape(n: Node, sh: Dict[str, Tuple[int, ...]]) -> None:
     t = n.op_type
+    if t == "Constant":                                 # reads no input
+        sh[n.outputs[0]] = tuple(n.attrs["shape"])
+        return
     x = sh[n.inputs[0]]
     if t == "Conv":
         cout, _, k, _ = n.attrs["weight_shape"]        # (Cout,Cin,k,k)

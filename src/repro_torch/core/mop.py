@@ -38,7 +38,7 @@ DCOM_KINDS = {
     "relu", "gelu", "silu", "sigmoid", "tanh", "add", "mul", "shift_acc",
     "maxpool", "avgpool", "softmax", "layernorm", "rmsnorm", "matmul",
     "embedding", "ssm_scan", "rope", "topk_router", "softcap", "identity",
-    "transpose", "concat", "split", "flatten", "reshape",
+    "transpose", "concat", "split", "flatten", "reshape", "const",
 }
 
 

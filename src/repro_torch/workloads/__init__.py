@@ -1,7 +1,7 @@
 """CIM benchmark networks (§4.1 "Network Benchmark") as graph builders."""
 from .vgg import vgg7, vgg16
 from .resnet import resnet18, resnet34, resnet50, resnet101
-from .vit import vit_base
+from .vit import vit_base, vit_b16
 from .tiny import tiny_cnn, tiny_mlp, conv_relu_toy
 
 WORKLOADS = {
@@ -12,6 +12,7 @@ WORKLOADS = {
     "resnet50": resnet50,
     "resnet101": resnet101,
     "vit": vit_base,
+    "vit_b16": vit_b16,
     "tiny_cnn": tiny_cnn,
     "tiny_mlp": tiny_mlp,
     "conv_relu_toy": conv_relu_toy,
