@@ -17,9 +17,12 @@ program over device tensors with the same bit-exact semantics:
     whole node folds into a single matrix product (the provably-exact
     ADC case);
   * ``shift_acc``, requantization and the DCOM operators run as tensor
-    ops on the same device (rare float-reference ops make a host
-    round-trip into the NumPy float64 reference, so they stay
-    bit-identical to it);
+    ops on the same device.  The float-reference ops stay bit-identical
+    to the NumPy float64 reference: an elementwise one whose operand
+    lowering proves int8-range (``_int8_range``) becomes a gather from
+    a 256-entry table that the reference itself filled at lowering;
+    the rest (the row reductions, or an operand of unknown range) make
+    a host round-trip into it;
   * every tensor carries a leading batch axis, so N inferences execute
     in one pass (``run_batch``);
   * **multi-segment schedules stream weight updates**: when the compile
@@ -96,6 +99,22 @@ _SUPPORTED_DCOM = {
 #: ops whose lowering consumes a calibrated requantization shift
 _SHIFTED_DCOM = {"Add", "Mul", "MatMul"}
 
+#: float-reference ops elementwise over one operand: on an int8-range
+#: operand each answer is one of 256, gathered from a table on the device
+_TABLE_DCOM = {"Gelu", "Silu", "Sigmoid", "Tanh"}
+
+#: every float-reference op (the row reductions run on the host)
+_FLOAT_DCOM = _TABLE_DCOM | {"Softmax", "LayerNorm", "RMSNorm"}
+
+#: ops whose output is clamped or clipped to [-128, 127] (crossbar nodes
+#: too); ``Constant`` draws from that range
+_INT8_OUT = _FLOAT_DCOM | {"Add", "Mul", "MatMul", "Constant"}
+
+#: ops whose output stays in the range of their inputs
+_INT8_KEEP = {"Relu", "MaxPool", "AveragePool", "GlobalAveragePool",
+              "Flatten", "Reshape", "Identity", "Transpose", "Split",
+              "Concat"}
+
 
 class LoweringError(ValueError):
     """The program cannot be lowered bit-exactly (unsupported op or
@@ -115,6 +134,8 @@ class ExecutorStats:
 
     cim_nodes: int = 0
     dcom_nodes: int = 0
+    table_dcom_nodes: int = 0  # float ops gathered from a device table
+    host_dcom_nodes: int = 0   # float ops run by a host round trip
     units: int = 0          # crossbar read units folded into dispatches
     dispatches: int = 0     # batched MVM invocations per forward
     matmul_nodes: int = 0   # exact-ADC nodes lowered to one matrix product
@@ -376,6 +397,18 @@ class LoweredExecutable:
                     node.attrs.get("pad", 0)))
             if not node.is_cim:
                 self.stats.dcom_nodes += 1
+        #: each tabulated float op's answers to the operands -128..127,
+        #: on the device; the other float ops take the host round trip
+        self._tables: Dict[str, torch.Tensor] = {}
+        int8 = _int8_range(self.graph)
+        for node in self.graph.nodes:
+            if node.op_type in _TABLE_DCOM and node.inputs[0] in int8:
+                self._tables[node.name] = self._dev(
+                    _float_host(node, np.arange(-128, 128)))
+        self.stats.table_dcom_nodes = len(self._tables)
+        self.stats.host_dcom_nodes = sum(
+            n.op_type in _FLOAT_DCOM for n in self.graph.nodes) \
+            - len(self._tables)
         self._shift_names = sorted(
             [n.name for n in self.graph.nodes
              if n.is_cim or n.op_type in _SHIFTED_DCOM])
@@ -798,8 +831,11 @@ class LoweredExecutable:
                 tensors[node.outputs[0]] = self._dcom(node, xs, shifts,
                                                       spans)
             if spans is not None:
+                route = {} if node.op_type not in _FLOAT_DCOM else {
+                    "dcom": "table" if node.name in self._tables
+                    else "host"}
                 spans.span(node.op_type, t0, node=node.name,
-                           cim=node.is_cim)
+                           cim=node.is_cim, **route)
         return {t: tensors[t] for t in self.graph.outputs}
 
     def _rows(self, node: Node, x):
@@ -925,17 +961,42 @@ class LoweredExecutable:
             y = (xs[0].to(torch.float64) @ b.to(torch.float64)) \
                 .to(torch.int32)
             return torch.clamp(y >> shifts[node.name], -128, 127)
-        # float-reference ops: the NumPy float64 path is the contract, so
-        # take a host round-trip through it (elementwise / last-axis only,
+        # float-reference ops: the NumPy float64 path is the contract
+        table = self._tables.get(node.name)
+        if table is not None:
+            # an int8-range operand: its answer is the table's entry
+            idx = (xs[0] + 128).reshape(-1)
+            return torch.index_select(table, 0, idx).view(xs[0].shape)
+        # else a host round-trip through it (elementwise / last-axis only,
         # hence batch-transparent)
         if spans is not None:
             t0 = obs_trace.now_s()
-        y = _float_dcom(t, [xs[0].cpu().numpy()], node)
-        y = np.clip(np.round(y * 32.0), -128, 127).astype(np.int32)
+        y = _float_host(node, xs[0].cpu().numpy())
         out = torch.as_tensor(y, device=self.device)
         if spans is not None:
             spans.span("executor.host_dcom", t0, bytes=int(y.nbytes))
         return out
+
+
+def _float_host(node: Node, x: np.ndarray) -> np.ndarray:
+    """The float-reference op ``node`` on the host: NumPy float64, then
+    requantized to int8 as the interpreter does."""
+    y = _float_dcom(node.op_type, [x], node)
+    return np.clip(np.round(y * 32.0), -128, 127).astype(np.int32)
+
+
+def _int8_range(graph: Graph) -> set:
+    """Names of the tensors that every forward keeps in [-128, 127]:
+    the outputs of crossbar nodes and of ``_INT8_OUT`` ops, and of
+    ``_INT8_KEEP`` ops over such tensors alone.  Graph inputs are not
+    among them: nothing clamps what a caller feeds."""
+    marked = set()
+    for node in graph.nodes:
+        if node.is_cim or node.op_type in _INT8_OUT or (
+                node.op_type in _INT8_KEEP
+                and all(t in marked for t in node.inputs)):
+            marked.update(node.outputs)
+    return marked
 
 
 # ---------------------------------------------------------------------------

@@ -266,3 +266,133 @@ def test_pack_rejects_weights_outside_the_encoded_range(kind):
     weights["fc1"][0, 0] = 128
     with pytest.raises(tex.TileRangeError, match="outside"):
         exe.pack(weights)
+
+
+def _float_op_graph(op: str, in_shape, direct: bool = False):
+    """``op`` after a crossbar Gemm (``direct``: on the graph input
+    itself, then the Gemm), served with the Gemm's output."""
+    Node = tgraph.Node
+    k = in_shape[-1]
+    if direct:
+        nodes = [Node("f", op, ["input"], ["f.out"]),
+                 Node("fc", "Gemm", ["f.out"], ["fc.out"],
+                      {"weight_shape": (k, 7)})]
+        outputs = ["f.out", "fc.out"]
+    else:
+        nodes = [Node("fc", "Gemm", ["input"], ["fc.out"],
+                      {"weight_shape": (k, 7)}),
+                 Node("f", op, ["fc.out"], ["f.out"])]
+        outputs = ["fc.out", "f.out"]
+    return tgraph.Graph(f"{op.lower()}_toy", nodes, {"input": in_shape},
+                        outputs)
+
+
+def _interpreted(g, arch, weights, shifts, xs):
+    """The port's op-by-op interpreter over each row of ``xs``, stacked."""
+    res = tcompiler.compile_graph(g, arch, expand=True)
+    sim = tfn.FunctionalSimulator(res.plan, res.program, weights, shifts,
+                                  device="cpu")
+    outs = [sim.run({"input": x}) for x in xs]
+    return {t: np.stack([o[t] for o in outs]) for t in g.outputs}
+
+
+@pytest.mark.parametrize("op", ["Gelu", "Silu", "Sigmoid", "Tanh"])
+def test_elementwise_float_op_is_a_table_equal_to_the_host_path(op):
+    """After a crossbar node (int8-range) the op is one gather from a
+    256-entry table: the table is the NumPy float64 reference's answer
+    to every operand, and ``run_batch`` equals the interpreter and the
+    host round trip over batches of odd shapes."""
+    arch = _arch(ta, "saturating")
+    params = tparams(arch)
+    for in_shape in [(13,), (3, 13)]:
+        g = _float_op_graph(op, in_shape)
+        res = tcompiler.compile_graph(g, arch)
+        exe = tex.lower(res.plan, res.program, params=params, device="cpu",
+                        cache=False)
+        assert (exe.stats.table_dcom_nodes, exe.stats.host_dcom_nodes) \
+            == (1, 0)
+        y = tfn._float_dcom(op, [np.arange(-128, 128)], g.node("f"))
+        np.testing.assert_array_equal(
+            exe._tables["f"].numpy(),
+            np.clip(np.round(y * 32.0), -128, 127).astype(np.int32))
+        weights = tfn.make_weights(g, 0)
+        shifts = tfn.calibrate_shifts(g, weights, tfn.make_input(g, 0),
+                                      params, device="cpu")
+        host = tex.lower(res.plan, res.program, params=params, device="cpu",
+                         cache=False)
+        host._tables.clear()
+        for batch in (1, 2, 5):
+            xs = np.stack([tfn.make_input(g, batch * 10 + i)["input"]
+                           for i in range(batch)])
+            out = exe.run_batch({"input": xs}, weights, shifts)
+            want = _interpreted(g, arch, weights, shifts, xs)
+            got_host = host.run_batch({"input": xs}, weights, shifts)
+            for t in g.outputs:
+                np.testing.assert_array_equal(out[t], want[t])
+                np.testing.assert_array_equal(out[t], got_host[t])
+
+
+def test_float_op_on_a_graph_input_keeps_the_host_round_trip():
+    """Nothing clamps a graph input, so an op reading one is not
+    tabulated, and operands far outside [-128, 127] still equal the
+    interpreter."""
+    arch = _arch(ta, "saturating")
+    params = tparams(arch)
+    g = _float_op_graph("Gelu", (3, 13), direct=True)
+    res = tcompiler.compile_graph(g, arch)
+    exe = tex.lower(res.plan, res.program, params=params, device="cpu",
+                    cache=False)
+    assert (exe.stats.table_dcom_nodes, exe.stats.host_dcom_nodes) == (0, 1)
+    assert not exe._tables
+    weights = tfn.make_weights(g, 0)
+    xs = np.random.default_rng(1).integers(-1000, 1001, (2, 3, 13))
+    xs[0, 0, :2] = (-1000, 1000)
+    shifts = tfn.calibrate_shifts(g, weights, {"input": xs[0]}, params,
+                                  device="cpu")
+    out = exe.run_batch({"input": xs}, weights, shifts)
+    want = _interpreted(g, arch, weights, shifts, xs)
+    for t in g.outputs:
+        np.testing.assert_array_equal(out[t], want[t])
+
+
+def _marked_graph():
+    """Each mark the range proof gives: kept through Relu, Transpose and
+    Reshape, lost by a Concat with the graph input."""
+    Node = tgraph.Node
+    nodes = [
+        Node("fc", "Gemm", ["input"], ["fc.out"], {"weight_shape": (8, 8)}),
+        Node("r", "Relu", ["fc.out"], ["r.out"]),
+        Node("tr", "Transpose", ["r.out"], ["tr.out"], {"perm": [1, 0]}),
+        Node("rs", "Reshape", ["tr.out"], ["rs.out"], {"shape": [4, 4]}),
+        Node("t1", "Tanh", ["rs.out"], ["t1.out"]),
+        Node("cat", "Concat", ["input", "fc.out"], ["cat.out"],
+             {"axis": 0}),
+        Node("t2", "Sigmoid", ["cat.out"], ["t2.out"]),
+    ]
+    return tgraph.Graph("marks", nodes, {"input": (2, 8)},
+                        ["t1.out", "t2.out"])
+
+
+@pytest.mark.parametrize("case, routes", [
+    ("marks", (1, 1)),
+    ("vit_b16", (12, 37)),     # 12 Gelu; 12 Softmax and 25 LayerNorm
+    ("resnet18", (0, 0)),
+])
+def test_float_op_routes_at_lowering(case, routes):
+    if case == "marks":
+        g = _marked_graph()
+        assert tex._int8_range(g) == {"fc.out", "r.out", "tr.out",
+                                      "rs.out", "t1.out", "t2.out"}
+    elif case == "vit_b16":
+        g = twl("vit_b16", in_hw=32, patch=16, d=32, n_layers=12,
+                n_heads=4, d_ff=512, n_classes=10)
+    else:
+        g = twl("resnet18", in_hw=32)
+    res = tcompiler.compile_graph(g, ta.get_arch("jia-issc21"))
+    exe = tex.lower(res.plan, res.program, device="cpu", cache=False)
+    assert (exe.stats.table_dcom_nodes, exe.stats.host_dcom_nodes) == routes
+    marked = tex._int8_range(g)
+    assert sorted(exe._tables) == sorted(
+        n.name for n in g.nodes
+        if n.op_type in ("Gelu", "Silu", "Sigmoid", "Tanh")
+        and n.inputs[0] in marked)

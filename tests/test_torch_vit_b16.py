@@ -313,8 +313,10 @@ def test_constant_compiles_to_an_op_that_reads_no_tensor():
 def test_every_node_emits_its_span():
     """With a recorder installed a dispatch gives each node, the
     Constants and the per-head Transpose, Reshape and MatMul included,
-    its ``<op_type>`` span named by ``node``, and each float op (the
-    scaled Softmax among them) one host round trip."""
+    its ``<op_type>`` span named by ``node``; each row-reducing float op
+    (the scaled Softmax among them) one host round trip, and the GELU,
+    whose operand is fc1's clamped output, none: its span says it was
+    gathered from its table."""
     from repro_torch.obs import trace as obs_trace
     g = _graph(n_layers=1)
     svc = CimBatchService(g, get_arch("jia-issc21"), seed=3, max_batch=2,
@@ -333,6 +335,13 @@ def test_every_node_emits_its_span():
     assert nodes == [(n.op_type, n.name) for n in svc.graph.nodes]
     assert ("Constant", "cls") in nodes and ("Softmax", "l0.smax") in nodes
     float_ops = [n for n in g.nodes
-                 if n.op_type in ("Softmax", "LayerNorm", "Gelu")]
+                 if n.op_type in ("Softmax", "LayerNorm")]
     assert sum(e["name"] == "executor.host_dcom" for e in ev) \
-        == len(float_ops) == 5
+        == len(float_ops) == 4
+    stats = svc.executor_stats
+    assert (stats.table_dcom_nodes, stats.host_dcom_nodes) == (1, 4)
+    dcom = {e["args"]["node"]: e["args"].get("dcom") for e in ev
+            if "node" in e["args"]}
+    assert dcom["l0.gelu"] == "table"
+    assert all(dcom[n.name] == "host" for n in float_ops)
+    assert dcom["l0.fc1"] is None and dcom["l0.smax"] == "host"
