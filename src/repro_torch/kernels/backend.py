@@ -13,10 +13,9 @@ registry decides from the device the tensors live on.  ``supports`` and
 ``capability_matrix`` say what can run where without resolving a call.  Auto resolution
 takes ``compiled`` on a Hopper CUDA device and ``torch`` on the CPU; it
 never takes ``torch`` on a CUDA device, so a CUDA tensor either reaches
-the kernel or raises.  Overrides exist at three levels, highest first:
+the kernel or raises.  Overrides exist at two levels, highest first:
 
   * per-call: ``cim_mvm(..., mode="torch")``,
-  * process-scoped: ``with backend.override("torch"): ...``,
   * environment: ``REPRO_TORCH_KERNEL_MODE=compiled|torch|auto``.
 
 The environment variable is the port's own: the JAX package's
@@ -26,7 +25,6 @@ nothing in the port turns that into a fallback.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
 from typing import Dict, Optional, Tuple
@@ -56,14 +54,13 @@ class KernelArgumentError(RuntimeError):
 
 @dataclasses.dataclass(frozen=True)
 class KernelCapability:
-    """Per-kernel support matrix: ``compiled_platforms`` lists platforms
-    with a built kernel; the ``torch`` route runs everywhere."""
+    """Per-kernel support matrix: the kernel is built for Hopper only;
+    the ``torch`` route runs everywhere."""
 
     name: str
-    compiled_platforms: Tuple[str, ...] = (HOPPER,)
 
     def modes_on(self, platform: str) -> Tuple[str, ...]:
-        if platform in self.compiled_platforms:
+        if platform == HOPPER:
             return ("compiled", "torch")
         return ("torch",)
 
@@ -111,57 +108,13 @@ def detect_platform(device) -> str:
     return HOPPER if major == 9 else f"sm_{major}{minor}"
 
 
-# -- overrides ---------------------------------------------------------------
-
-#: process-scoped mode overrides: kernel name -> mode ("" key = all kernels)
-_OVERRIDES: Dict[str, str] = {}
-
-
-def set_override(mode: Optional[str], kernel: str = "") -> None:
-    """Set (or with ``None`` clear) a process-scoped mode override.
-
-    ``kernel=""`` applies to every kernel; a named override wins over
-    the blanket one.  Overrides beat the environment variable, which
-    beats auto-resolution.
-    """
-    if mode is None:
-        _OVERRIDES.pop(kernel, None)
-    else:
-        _check_mode(mode)
-        _OVERRIDES[kernel] = mode
-
-
-@contextlib.contextmanager
-def override(mode: str, kernel: str = ""):
-    """``with backend.override("torch"): ...`` — scoped route forcing."""
-    prev = _OVERRIDES.get(kernel)
-    set_override(mode, kernel)
-    try:
-        yield
-    finally:
-        set_override(prev, kernel)
-
-
-def _check_mode(mode: str) -> None:
-    if mode not in MODES and mode != AUTO:
-        raise ValueError(f"unknown kernel mode {mode!r}; "
+def _requested_mode(mode: Optional[str]) -> str:
+    """Resolution order: per-call > environment > auto."""
+    want = mode or os.environ.get(_ENV_MODE, "").strip().lower() or AUTO
+    if want not in MODES and want != AUTO:
+        raise ValueError(f"unknown kernel mode {want!r}; "
                          f"expected one of {MODES + (AUTO,)}")
-
-
-def _requested_mode(kernel: str, mode: Optional[str]) -> str:
-    """Resolution order: per-call > per-kernel override > blanket
-    override > environment > auto."""
-    if mode:
-        _check_mode(mode)
-        return mode
-    for key in (kernel, ""):
-        if key in _OVERRIDES:
-            return _OVERRIDES[key]
-    env = os.environ.get(_ENV_MODE, "").strip().lower()
-    if env:
-        _check_mode(env)
-        return env
-    return AUTO
+    return want
 
 
 # -- resolution --------------------------------------------------------------
@@ -192,7 +145,7 @@ def resolve(kernel: str, mode: Optional[str] = None, *, device=None,
     if kernel not in REGISTRY:
         raise KeyError(f"unknown kernel {kernel!r}; "
                        f"registered: {sorted(REGISTRY)}")
-    want = _requested_mode(kernel, mode)
+    want = _requested_mode(mode)
     platform = _platform(device, platform)
     avail = REGISTRY[kernel].modes_on(platform)
     if want == AUTO:

@@ -10,9 +10,12 @@ through ``--help`` there (the host-only ones through ``main`` too, and
 the others refuse to run without a card); entry points asked for the default device (the LM
 model's, server's, trainer's and training CLI's too, on a host mesh
 as well) raise when there is no CUDA card (the host mesh's too); and the
-port's compile store is its own and refuses the JAX package's entries.
+port's compile store is its own and refuses the JAX package's entries;
+and an xdist worker runs torch, and the processes it starts, on its share
+of the host's cores (the root ``conftest.py``).
 """
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -333,3 +336,27 @@ def test_script_runs_with_jax_and_repro_blocked(path, tmp_path):
     assert lines[-1] == "[]"
     if run is None:
         assert lines[-2] == "refused without a card"
+
+
+def test_xdist_worker_runs_on_its_share_of_the_cores(request):
+    """Under ``pytest -n N`` torch's pool is the worker's thread setting,
+    which is ``cores // N`` where the root ``conftest.py`` set it, and a
+    subprocess inherits it."""
+    workers = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+    if not workers:
+        pytest.skip("not an xdist worker: a serial run keeps its threads")
+    env = {v: os.environ.get(v) for v in ("OMP_NUM_THREADS",
+                                          "MKL_NUM_THREADS")}
+    # torch takes MKL_NUM_THREADS over OMP_NUM_THREADS
+    assert torch.get_num_threads() == int(env["MKL_NUM_THREADS"]
+                                          or env["OMP_NUM_THREADS"])
+    rule = request.config.pluginmanager.get_plugin(str(ROOT / "conftest.py"))
+    if rule.THREADS:
+        assert rule.THREADS == max(
+            1, len(os.sched_getaffinity(0)) // int(workers))
+        assert set(env.values()) == {str(rule.THREADS)}
+    out = subprocess.run(
+        [sys.executable, "-c", "import os; print([os.environ.get(v) for v "
+         "in ('OMP_NUM_THREADS', 'MKL_NUM_THREADS')])"],
+        check=True, capture_output=True, text=True)
+    assert out.stdout.strip() == repr(list(env.values()))

@@ -196,17 +196,8 @@ def test_resolution_precedence(monkeypatch):
     assert backend.resolve("cim_mvm", platform="cuda").mode == "compiled"
     with pytest.raises(backend.KernelUnsupportedError):
         backend.resolve("cim_mvm", device="cpu")        # env beats auto
-    with backend.override("torch"):                     # blanket beats env
-        assert backend.resolve("cim_mvm", device="cpu").mode == "torch"
-        with backend.override("compiled", kernel="cim_mvm"):
-            # named beats blanket; per-call beats everything
-            assert backend.resolve("cim_mvm",
-                                   platform="cuda").mode == "compiled"
-            assert backend.resolve("cim_mvm_tiles",
-                                   platform="cuda").mode == "torch"
-            assert backend.resolve("cim_mvm", "torch",
-                                   platform="cuda").mode == "torch"
-    assert backend._OVERRIDES == {}
+    # per-call beats env
+    assert backend.resolve("cim_mvm", "torch", platform="cuda").mode == "torch"
 
 
 def test_jax_route_variable_is_ignored(monkeypatch):
