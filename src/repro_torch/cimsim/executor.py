@@ -18,11 +18,13 @@ program over device tensors with the same bit-exact semantics:
     ADC case);
   * ``shift_acc``, requantization and the DCOM operators run as tensor
     ops on the same device.  The float-reference ops stay bit-identical
-    to the NumPy float64 reference: an elementwise one whose operand
-    lowering proves int8-range (``_int8_range``) becomes a gather from
-    a 256-entry table that the reference itself filled at lowering;
-    the rest (the row reductions, or an operand of unknown range) make
-    a host round-trip into it;
+    to the NumPy float64 reference.  On an operand that lowering proves
+    int8-range (``_int8_range``) an elementwise one becomes a gather
+    from a 256-entry table that the reference itself filled at
+    lowering, and a row reduction (Softmax, LayerNorm, RMSNorm) runs on
+    the device in the reference's float64 operations and summation
+    order (``_row_dcom``); an operand of unknown range, or a Softmax
+    whose scale is not positive, makes a host round-trip into it;
   * every tensor carries a leading batch axis, so N inferences execute
     in one pass (``run_batch``);
   * **multi-segment schedules stream weight updates**: when the compile
@@ -103,8 +105,12 @@ _SHIFTED_DCOM = {"Add", "Mul", "MatMul"}
 #: operand each answer is one of 256, gathered from a table on the device
 _TABLE_DCOM = {"Gelu", "Silu", "Sigmoid", "Tanh"}
 
-#: every float-reference op (the row reductions run on the host)
-_FLOAT_DCOM = _TABLE_DCOM | {"Softmax", "LayerNorm", "RMSNorm"}
+#: float-reference ops reducing over the last axis: on an int8-range
+#: operand they run on the device in the reference's order
+_ROW_DCOM = {"Softmax", "LayerNorm", "RMSNorm"}
+
+#: every float-reference op
+_FLOAT_DCOM = _TABLE_DCOM | _ROW_DCOM
 
 #: ops whose output is clamped or clipped to [-128, 127] (crossbar nodes
 #: too); ``Constant`` draws from that range
@@ -135,6 +141,7 @@ class ExecutorStats:
     cim_nodes: int = 0
     dcom_nodes: int = 0
     table_dcom_nodes: int = 0  # float ops gathered from a device table
+    row_dcom_nodes: int = 0    # float ops run as row reductions on the device
     host_dcom_nodes: int = 0   # float ops run by a host round trip
     units: int = 0          # crossbar read units folded into dispatches
     dispatches: int = 0     # batched MVM invocations per forward
@@ -398,17 +405,38 @@ class LoweredExecutable:
             if not node.is_cim:
                 self.stats.dcom_nodes += 1
         #: each tabulated float op's answers to the operands -128..127,
-        #: on the device; the other float ops take the host round trip
+        #: on the device; each row-reducing float op's Softmax exp table
+        #: (``None`` for the norms) and row length, a float64 device
+        #: tensor.  The other float ops take the host round trip
         self._tables: Dict[str, torch.Tensor] = {}
+        self._row_ops: Dict[str, Tuple[Optional[torch.Tensor],
+                                       torch.Tensor]] = {}
+        exp_tables: Dict[float, torch.Tensor] = {}
         int8 = _int8_range(self.graph)
         for node in self.graph.nodes:
-            if node.op_type in _TABLE_DCOM and node.inputs[0] in int8:
+            if node.op_type not in _FLOAT_DCOM or node.inputs[0] not in int8:
+                continue
+            if node.op_type in _TABLE_DCOM:
                 self._tables[node.name] = self._dev(
                     _float_host(node, np.arange(-128, 128)))
+            else:
+                exp = None
+                if node.op_type == "Softmax":
+                    scale = node.attrs.get("scale", 1.0)
+                    if not scale > 0:
+                        continue            # the host round trip
+                    if scale not in exp_tables:
+                        exp_tables[scale] = self._dev(
+                            _softmax_exp_table(scale), torch.float64)
+                    exp = exp_tables[scale]
+                n = self.graph.shapes[node.inputs[0]][-1]
+                self._row_ops[node.name] = (exp, self._dev(
+                    np.float64(n), torch.float64))
         self.stats.table_dcom_nodes = len(self._tables)
+        self.stats.row_dcom_nodes = len(self._row_ops)
         self.stats.host_dcom_nodes = sum(
             n.op_type in _FLOAT_DCOM for n in self.graph.nodes) \
-            - len(self._tables)
+            - len(self._tables) - len(self._row_ops)
         self._shift_names = sorted(
             [n.name for n in self.graph.nodes
              if n.is_cim or n.op_type in _SHIFTED_DCOM])
@@ -833,6 +861,7 @@ class LoweredExecutable:
             if spans is not None:
                 route = {} if node.op_type not in _FLOAT_DCOM else {
                     "dcom": "table" if node.name in self._tables
+                    else "row" if node.name in self._row_ops
                     else "host"}
                 spans.span(node.op_type, t0, node=node.name,
                            cim=node.is_cim, **route)
@@ -967,6 +996,9 @@ class LoweredExecutable:
             # an int8-range operand: its answer is the table's entry
             idx = (xs[0] + 128).reshape(-1)
             return torch.index_select(table, 0, idx).view(xs[0].shape)
+        row = self._row_ops.get(node.name)
+        if row is not None:
+            return _row_dcom(node.op_type, xs[0], *row)
         # else a host round-trip through it (elementwise / last-axis only,
         # hence batch-transparent)
         if spans is not None:
@@ -983,6 +1015,97 @@ def _float_host(node: Node, x: np.ndarray) -> np.ndarray:
     requantized to int8 as the interpreter does."""
     y = _float_dcom(node.op_type, [x], node)
     return np.clip(np.round(y * 32.0), -128, 127).astype(np.int32)
+
+
+def _softmax_exp_table(scale: float) -> np.ndarray:
+    """``np.exp(x*s - m*s)`` for every operand x and row max m in
+    [-128, 127], at entry ``(x + 128) * 256 + m + 128``: the reference's
+    exponentials of an int8-range Softmax, computed as it computes them.
+    For s > 0 the row max of ``x*s`` is ``m*s``, since rounding is
+    monotone."""
+    x, m = np.meshgrid(np.arange(-128, 128, dtype=np.float64),
+                       np.arange(-128, 128, dtype=np.float64),
+                       indexing="ij")
+    return np.exp(x * scale - m * scale).reshape(-1)
+
+
+def _pairwise_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, kept, in NumPy's order for a contiguous
+    row (``pairwise_sum`` of its ``loops_utils.h``): blocks of at most
+    128 summed in 8 running lanes, longer rows split in two at
+    ``n//2 - (n//2) % 8``.  So float64 sums equal ``np.add.reduce(v,
+    axis=-1)`` bit for bit: only elementwise adds, each over all blocks
+    of one length at once."""
+    return _pairwise_blocks(v.unsqueeze(-2))
+
+
+def _pairwise_blocks(v: torch.Tensor) -> torch.Tensor:
+    """(..., k, n) -> (..., k): each of k rows of n summed as
+    ``_pairwise_sum`` does."""
+    n = v.shape[-1]
+    if n < 8:
+        s = torch.zeros_like(v[..., 0])
+        for i in range(n):
+            s = s + v[..., i]
+        return s
+    if n <= 128:
+        end = n - n % 8
+        r = v[..., :8]
+        for i in range(8, end, 8):
+            r = r + v[..., i:i + 8]
+        r = r[..., 0::2] + r[..., 1::2]     # (r0+r1), (r2+r3), ...
+        r = r[..., 0::2] + r[..., 1::2]     # ((r0+r1)+(r2+r3)), ...
+        s = r[..., 0] + r[..., 1]
+        for i in range(end, n):
+            s = s + v[..., i]
+        return s
+    h = n // 2
+    h -= h % 8
+    if 2 * h == n:
+        # equal halves: all 2k of them as rows of one call
+        s = _pairwise_blocks(v.reshape(*v.shape[:-2], 2 * v.shape[-2], h))
+        s = s.reshape(*v.shape[:-1], 2)
+        return s[..., 0] + s[..., 1]
+    return _pairwise_blocks(v[..., :h]) + _pairwise_blocks(v[..., h:])
+
+
+def _row_dcom(op_type: str, x: torch.Tensor, exp: Optional[torch.Tensor],
+              n: torch.Tensor) -> torch.Tensor:
+    """Softmax, LayerNorm or RMSNorm over the last axis of an int8-range
+    ``x``, on its device, bit-equal to ``_float_host``."""
+    y = _row_float(op_type, x, exp, n)
+    return torch.clamp(torch.round(y * 32.0), -128, 127).to(torch.int32)
+
+
+def _row_float(op_type: str, x: torch.Tensor, exp: Optional[torch.Tensor],
+               n: torch.Tensor) -> torch.Tensor:
+    """``_row_dcom`` before requantization, bit-equal to ``_float_dcom``:
+    the reference's float64 operations in its order.  ``exp`` is
+    Softmax's ``_softmax_exp_table``; ``n`` the row length as a float64
+    tensor on the device, since CUDA divides by a host scalar as a
+    product with its reciprocal.  No fused op: a contracted multiply-add
+    rounds once where the reference rounds twice."""
+    if op_type == "Softmax":
+        m = x.amax(dim=-1, keepdim=True)
+        idx = ((x + 128) * 256 + (m + 128)).reshape(-1)
+        e = torch.index_select(exp, 0, idx).view(x.shape)
+        y = e / _pairwise_sum(e)
+    else:
+        y = x.to(torch.float64)
+        if op_type == "LayerNorm":
+            # a sum of integers, exact in float64 in any order
+            y = y - y.sum(dim=-1, keepdim=True) / n
+        y = y / _sqrt(_pairwise_sum(y * y) / n + 1e-6)
+    return y
+
+
+def _sqrt(v: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root, as NumPy's: the card's
+    ``torch.sqrt`` is, the CPU's (MKL's vector math) not always, so on
+    the CPU, where the tensor is host memory, it is NumPy's."""
+    if v.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(v.numpy()))
+    return torch.sqrt(v)
 
 
 def _int8_range(graph: Graph) -> set:

@@ -169,8 +169,10 @@ def test_executor_split_graph():
 
 @pytest.mark.parametrize("kind", ["exact", "saturating"])
 def test_executor_float_and_matmul_dcom_ops(kind):
-    """MatMul (transpose_b), Softmax, LayerNorm and Gelu: the float ops
-    take the host round-trip through the NumPy float64 reference."""
+    """MatMul (transpose_b), Softmax, LayerNorm and Gelu: each float op
+    reads an int8-range operand, so Softmax and LayerNorm run as row
+    reductions on the device and Gelu as a table, all bit-equal to the
+    reference's NumPy float64 path."""
     _port("attn", kind, "WLM", 2)
 
 
@@ -268,20 +270,22 @@ def test_pack_rejects_weights_outside_the_encoded_range(kind):
         exe.pack(weights)
 
 
-def _float_op_graph(op: str, in_shape, direct: bool = False):
-    """``op`` after a crossbar Gemm (``direct``: on the graph input
-    itself, then the Gemm), served with the Gemm's output."""
+def _float_op_graph(op: str, in_shape, direct: bool = False,
+                    width: int = 7, **attrs):
+    """``op`` (with ``attrs``) after a crossbar Gemm of ``width``
+    outputs (``direct``: on the graph input itself, then the Gemm),
+    served with the Gemm's output."""
     Node = tgraph.Node
     k = in_shape[-1]
     if direct:
-        nodes = [Node("f", op, ["input"], ["f.out"]),
+        nodes = [Node("f", op, ["input"], ["f.out"], attrs),
                  Node("fc", "Gemm", ["f.out"], ["fc.out"],
-                      {"weight_shape": (k, 7)})]
+                      {"weight_shape": (k, width)})]
         outputs = ["f.out", "fc.out"]
     else:
         nodes = [Node("fc", "Gemm", ["input"], ["fc.out"],
-                      {"weight_shape": (k, 7)}),
-                 Node("f", op, ["fc.out"], ["f.out"])]
+                      {"weight_shape": (k, width)}),
+                 Node("f", op, ["fc.out"], ["f.out"], attrs)]
         outputs = ["fc.out", "f.out"]
     return tgraph.Graph(f"{op.lower()}_toy", nodes, {"input": in_shape},
                         outputs)
@@ -309,8 +313,8 @@ def test_elementwise_float_op_is_a_table_equal_to_the_host_path(op):
         res = tcompiler.compile_graph(g, arch)
         exe = tex.lower(res.plan, res.program, params=params, device="cpu",
                         cache=False)
-        assert (exe.stats.table_dcom_nodes, exe.stats.host_dcom_nodes) \
-            == (1, 0)
+        assert (exe.stats.table_dcom_nodes, exe.stats.row_dcom_nodes,
+                exe.stats.host_dcom_nodes) == (1, 0, 0)
         y = tfn._float_dcom(op, [np.arange(-128, 128)], g.node("f"))
         np.testing.assert_array_equal(
             exe._tables["f"].numpy(),
@@ -342,7 +346,8 @@ def test_float_op_on_a_graph_input_keeps_the_host_round_trip():
     res = tcompiler.compile_graph(g, arch)
     exe = tex.lower(res.plan, res.program, params=params, device="cpu",
                     cache=False)
-    assert (exe.stats.table_dcom_nodes, exe.stats.host_dcom_nodes) == (0, 1)
+    assert (exe.stats.table_dcom_nodes, exe.stats.row_dcom_nodes,
+            exe.stats.host_dcom_nodes) == (0, 0, 1)
     assert not exe._tables
     weights = tfn.make_weights(g, 0)
     xs = np.random.default_rng(1).integers(-1000, 1001, (2, 3, 13))
@@ -374,9 +379,9 @@ def _marked_graph():
 
 
 @pytest.mark.parametrize("case, routes", [
-    ("marks", (1, 1)),
-    ("vit_b16", (12, 37)),     # 12 Gelu; 12 Softmax and 25 LayerNorm
-    ("resnet18", (0, 0)),
+    ("marks", (1, 0, 1)),
+    ("vit_b16", (12, 37, 0)),     # 12 Gelu; 12 Softmax and 25 LayerNorm
+    ("resnet18", (0, 0, 0)),
 ])
 def test_float_op_routes_at_lowering(case, routes):
     if case == "marks":
@@ -390,9 +395,86 @@ def test_float_op_routes_at_lowering(case, routes):
         g = twl("resnet18", in_hw=32)
     res = tcompiler.compile_graph(g, ta.get_arch("jia-issc21"))
     exe = tex.lower(res.plan, res.program, device="cpu", cache=False)
-    assert (exe.stats.table_dcom_nodes, exe.stats.host_dcom_nodes) == routes
+    assert (exe.stats.table_dcom_nodes, exe.stats.row_dcom_nodes,
+            exe.stats.host_dcom_nodes) == routes
     marked = tex._int8_range(g)
     assert sorted(exe._tables) == sorted(
         n.name for n in g.nodes
         if n.op_type in ("Gelu", "Silu", "Sigmoid", "Tanh")
         and n.inputs[0] in marked)
+    assert sorted(exe._row_ops) == sorted(
+        n.name for n in g.nodes
+        if n.op_type in ("Softmax", "LayerNorm", "RMSNorm")
+        and n.inputs[0] in marked)
+
+
+@pytest.mark.parametrize("op, attrs", [
+    ("Softmax", {"scale": 0.125}),
+    ("Softmax", {}),
+    ("LayerNorm", {}),
+    ("RMSNorm", {}),
+])
+def test_row_float_op_runs_on_the_device_equal_to_the_host_path(op, attrs):
+    """After a crossbar node (int8-range) the op is a row reduction on
+    the executor's device, over rows of 200 (split 96 + 104 in NumPy's
+    pairwise order) and of 7, equal to the interpreter and to the host
+    round trip over batches of odd sizes."""
+    arch = _arch(ta, "saturating")
+    params = tparams(arch)
+    for width in (200, 7):
+        g = _float_op_graph(op, (3, 13), width=width, **attrs)
+        res = tcompiler.compile_graph(g, arch)
+        exe = tex.lower(res.plan, res.program, params=params, device="cpu",
+                        cache=False)
+        assert (exe.stats.table_dcom_nodes, exe.stats.row_dcom_nodes,
+                exe.stats.host_dcom_nodes) == (0, 1, 0)
+        weights = tfn.make_weights(g, 0)
+        shifts = tfn.calibrate_shifts(g, weights, tfn.make_input(g, 0),
+                                      params, device="cpu")
+        host = tex.lower(res.plan, res.program, params=params, device="cpu",
+                         cache=False)
+        host._row_ops.clear()
+        for batch in (1, 2, 5):
+            xs = np.stack([tfn.make_input(g, batch * 10 + i)["input"]
+                           for i in range(batch)])
+            out = exe.run_batch({"input": xs}, weights, shifts)
+            want = _interpreted(g, arch, weights, shifts, xs)
+            got_host = host.run_batch({"input": xs}, weights, shifts)
+            for t in g.outputs:
+                np.testing.assert_array_equal(out[t], want[t])
+                np.testing.assert_array_equal(out[t], got_host[t])
+
+
+@pytest.mark.parametrize("op, attrs, direct", [
+    ("Softmax", {"scale": 0.0}, False),
+    ("Softmax", {"scale": -0.5}, False),
+    ("LayerNorm", {}, True),
+    ("Softmax", {"scale": 0.125}, True),
+])
+def test_row_float_op_keeps_the_host_round_trip(op, attrs, direct):
+    """A Softmax whose scale is not positive (its row max is not the
+    scaled max of the integers) and a row op on a graph input (nothing
+    clamps it) keep the host round trip, and still equal the
+    interpreter, on a graph input operands far outside [-128, 127]
+    included."""
+    arch = _arch(ta, "saturating")
+    params = tparams(arch)
+    g = _float_op_graph(op, (3, 13), direct=direct, width=40, **attrs)
+    res = tcompiler.compile_graph(g, arch)
+    exe = tex.lower(res.plan, res.program, params=params, device="cpu",
+                    cache=False)
+    assert (exe.stats.table_dcom_nodes, exe.stats.row_dcom_nodes,
+            exe.stats.host_dcom_nodes) == (0, 0, 1)
+    assert not exe._row_ops
+    weights = tfn.make_weights(g, 0)
+    if direct:
+        xs = np.random.default_rng(1).integers(-1000, 1001, (2, 3, 13))
+        xs[0, 0, :2] = (-1000, 1000)
+    else:       # the crossbar's operands stay in its range
+        xs = np.stack([tfn.make_input(g, i)["input"] for i in range(2)])
+    shifts = tfn.calibrate_shifts(g, weights, {"input": xs[0]}, params,
+                                  device="cpu")
+    out = exe.run_batch({"input": xs}, weights, shifts)
+    want = _interpreted(g, arch, weights, shifts, xs)
+    for t in g.outputs:
+        np.testing.assert_array_equal(out[t], want[t])

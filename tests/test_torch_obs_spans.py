@@ -290,12 +290,14 @@ def test_install_reads_both_clocks_together():
 
 
 def _float_graph():
+    """A Softmax on the graph input, which nothing clamps: it keeps the
+    host round trip."""
     Node = tgraph.Node
     nodes = [
-        Node("fc1", "Gemm", ["input"], ["fc1.out"],
+        Node("sm", "Softmax", ["input"], ["sm.out"]),
+        Node("fc1", "Gemm", ["sm.out"], ["fc1.out"],
              {"weight_shape": (16, 16)}),
-        Node("sm", "Softmax", ["fc1.out"], ["sm.out"]),
-        Node("fc2", "Gemm", ["sm.out"], ["fc2.out"],
+        Node("fc2", "Gemm", ["fc1.out"], ["fc2.out"],
              {"weight_shape": (16, 5)}),
     ]
     return tgraph.Graph("float_toy", nodes, {"input": (16,)}, ["fc2.out"])
