@@ -25,6 +25,11 @@ program over device tensors with the same bit-exact semantics:
     the device in the reference's float64 operations and summation
     order (``_row_dcom``); an operand of unknown range, or a Softmax
     whose scale is not positive, makes a host round-trip into it;
+  * an ``MoE`` node sums each held expert's gated output rows: an
+    expert whose input a chain of row-wise nodes computes from one row
+    tensor alone (``_expert_chain``) runs that chain on the rows its
+    router sent it, gathered, and scatters them back, so the crossbar
+    kernel's row count follows the routing;
   * every tensor carries a leading batch axis, so N inferences execute
     in one pass (``run_batch``);
   * **multi-segment schedules stream weight updates**: when the compile
@@ -80,8 +85,10 @@ from ..core.mop import Program
 from ..kernels import backend
 from ..kernels.cim_mvm import CimMvmParams, cim_mvm_params, cim_mvm_tiles
 from ..kernels.cim_mvm.kernel import operand_dtype
-from .functional import (_float_dcom, chunk_offsets, constant_value,
-                         spread_slice, tile_ranges, weights_numpy)
+from .functional import (_float_dcom, apply_dcom, causal_mask,
+                         chunk_offsets, constant_value, rope_layout,
+                         rope_tables, spread_slice, tile_ranges,
+                         weights_numpy)
 
 _INT32_MAX = 2 ** 31 - 1
 
@@ -95,11 +102,11 @@ _SUPPORTED_DCOM = {
     "Relu", "Add", "Mul", "MaxPool", "AveragePool", "GlobalAveragePool",
     "Flatten", "Reshape", "Identity", "Transpose", "Concat", "Split",
     "MatMul", "Gelu", "Silu", "Sigmoid", "Tanh", "Softmax", "LayerNorm",
-    "RMSNorm", "Constant",
+    "RMSNorm", "Constant", "RoPE", "TopKRouter", "MoE", "Clip",
 }
 
 #: ops whose lowering consumes a calibrated requantization shift
-_SHIFTED_DCOM = {"Add", "Mul", "MatMul"}
+_SHIFTED_DCOM = {"Add", "Mul", "MatMul", "MoE"}
 
 #: float-reference ops elementwise over one operand: on an int8-range
 #: operand each answer is one of 256, gathered from a table on the device
@@ -114,7 +121,16 @@ _FLOAT_DCOM = _TABLE_DCOM | _ROW_DCOM
 
 #: ops whose output is clamped or clipped to [-128, 127] (crossbar nodes
 #: too); ``Constant`` draws from that range
-_INT8_OUT = _FLOAT_DCOM | {"Add", "Mul", "MatMul", "Constant"}
+_INT8_OUT = _FLOAT_DCOM | {"Add", "Mul", "MatMul", "Constant", "RoPE",
+                           "TopKRouter", "MoE"}
+
+#: ops that map each row of their operands to the same row of their
+#: output: a held expert's chain of them runs on its routed rows alone
+_ROW_WISE = _TABLE_DCOM | {"Gemm", "Linear", "Relu", "Add", "Mul",
+                           "Identity"}
+
+#: buckets of the ``executor_expert_rows`` histogram
+_ROW_BUCKETS = (0, 16, 64, 256, 1024, 4096, 16384)
 
 #: ops whose output stays in the range of their inputs
 _INT8_KEEP = {"Relu", "MaxPool", "AveragePool", "GlobalAveragePool",
@@ -143,6 +159,9 @@ class ExecutorStats:
     table_dcom_nodes: int = 0  # float ops gathered from a device table
     row_dcom_nodes: int = 0    # float ops run as row reductions on the device
     host_dcom_nodes: int = 0   # float ops run by a host round trip
+    causal_softmax_nodes: int = 0  # causal Softmax nodes among the row ops
+    rope_nodes: int = 0        # rotary embeddings, float64 on the device
+    moe_nodes: int = 0         # expert combines, each held expert routed
     units: int = 0          # crossbar read units folded into dispatches
     dispatches: int = 0     # batched MVM invocations per forward
     matmul_nodes: int = 0   # exact-ADC nodes lowered to one matrix product
@@ -154,6 +173,18 @@ class ExecutorStats:
     @property
     def cim_reads(self) -> int:   # SimStats-compatible accessor
         return self.units
+
+
+@dataclasses.dataclass(frozen=True)
+class _Expert:
+    """One held expert of an ``MoE`` node: the nodes that compute its
+    input ``out`` from the row tensor ``source`` alone, each row from
+    the same row, so they run on the rows routed to the expert."""
+
+    expert: int                      # the expert's index in the router
+    source: str
+    nodes: Tuple[Node, ...]          # in graph order
+    out: str
 
 
 @dataclasses.dataclass(frozen=True)
@@ -359,8 +390,10 @@ class LoweredExecutable:
         self._op_dtype = operand_dtype(self.params)
 
         unsupported = sorted({n.op_type for n in self.graph.nodes
-                              if not n.is_cim
-                              and n.op_type not in _SUPPORTED_DCOM})
+                              if not n.is_cim and (
+                                  n.op_type not in _SUPPORTED_DCOM
+                                  or n.op_type == "TopKRouter"
+                                  and "top_k" not in n.attrs)})
         if unsupported:
             raise LoweringError(f"no bit-exact lowering for {unsupported}")
 
@@ -406,37 +439,82 @@ class LoweredExecutable:
                 self.stats.dcom_nodes += 1
         #: each tabulated float op's answers to the operands -128..127,
         #: on the device; each row-reducing float op's Softmax exp table
-        #: (``None`` for the norms) and row length, a float64 device
-        #: tensor.  The other float ops take the host round trip
+        #: (``None`` for the norms), row length, a float64 device tensor,
+        #: and a causal Softmax's (queries, keys) mask (else ``None``).
+        #: The other float ops take the host round trip.  A router's
+        #: Softmax takes the row route on the same terms
         self._tables: Dict[str, torch.Tensor] = {}
         self._row_ops: Dict[str, Tuple[Optional[torch.Tensor],
-                                       torch.Tensor]] = {}
+                                       torch.Tensor,
+                                       Optional[torch.Tensor]]] = {}
+        self._routers: Dict[str, Tuple[Optional[torch.Tensor],
+                                       torch.Tensor,
+                                       Optional[torch.Tensor]]] = {}
         exp_tables: Dict[float, torch.Tensor] = {}
         int8 = _int8_range(self.graph)
         for node in self.graph.nodes:
-            if node.op_type not in _FLOAT_DCOM or node.inputs[0] not in int8:
+            routes = node.op_type == "TopKRouter"
+            if not (node.op_type in _FLOAT_DCOM or routes) \
+                    or node.inputs[0] not in int8:
                 continue
             if node.op_type in _TABLE_DCOM:
                 self._tables[node.name] = self._dev(
                     _float_host(node, np.arange(-128, 128)))
-            else:
-                exp = None
-                if node.op_type == "Softmax":
-                    scale = node.attrs.get("scale", 1.0)
-                    if not scale > 0:
-                        continue            # the host round trip
-                    if scale not in exp_tables:
-                        exp_tables[scale] = self._dev(
-                            _softmax_exp_table(scale), torch.float64)
-                    exp = exp_tables[scale]
-                n = self.graph.shapes[node.inputs[0]][-1]
-                self._row_ops[node.name] = (exp, self._dev(
-                    np.float64(n), torch.float64))
+                continue
+            exp = keep = None
+            shape = self.graph.shapes[node.inputs[0]]
+            if node.op_type in ("Softmax", "TopKRouter"):
+                scale = node.attrs.get("scale", 1.0)
+                if not scale > 0:
+                    continue            # the host round trip
+                if scale not in exp_tables:
+                    exp_tables[scale] = self._dev(
+                        _softmax_exp_table(scale), torch.float64)
+                exp = exp_tables[scale]
+                if node.attrs.get("causal"):
+                    keep = torch.as_tensor(causal_mask(*shape[-2:]),
+                                           device=self.device)
+            row = (exp, self._dev(np.float64(shape[-1]), torch.float64), keep)
+            (self._routers if routes else self._row_ops)[node.name] = row
         self.stats.table_dcom_nodes = len(self._tables)
         self.stats.row_dcom_nodes = len(self._row_ops)
+        self.stats.causal_softmax_nodes = sum(
+            self.graph.node(name).attrs.get("causal", False)
+            for name in self._row_ops)
         self.stats.host_dcom_nodes = sum(
             n.op_type in _FLOAT_DCOM for n in self.graph.nodes) \
             - len(self._tables) - len(self._row_ops)
+        #: each RoPE node's operand order (interleaved pairs to halves)
+        #: and its cos and sin tables, float64 on the device, shaped to
+        #: broadcast over a batch of its operands
+        self._ropes: Dict[str, Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]] = {}
+        for node in self.graph.nodes:
+            if node.op_type == "RoPE":
+                perm, tshape = rope_layout(
+                    node, self.graph.shapes[node.inputs[0]])
+                cos, sin = rope_tables(node, tshape[0])
+                self._ropes[node.name] = (
+                    self._index(perm),
+                    self._dev(cos.reshape(tshape), torch.float64),
+                    self._dev(sin.reshape(tshape), torch.float64))
+        self.stats.rope_nodes = len(self._ropes)
+        #: each MoE node's held experts, in its input order, with the
+        #: chain run on the expert's routed rows (``None``: the expert's
+        #: input is computed for every row, as any tensor is); the chains'
+        #: nodes run inside their MoE node, not in graph order.  With
+        #: them, the held experts' columns of the router's output
+        self._moe: Dict[str, List[Optional[_Expert]]] = {}
+        self._held: Dict[str, torch.Tensor] = {}
+        for node in self.graph.nodes:
+            if node.op_type == "MoE":
+                self._moe[node.name] = [
+                    _expert_chain(self.graph, node, e, t)
+                    for e, t in zip(node.attrs["experts"], node.inputs[1:])]
+                self._held[node.name] = self._index(node.attrs["experts"])
+        self._in_moe = {n.name for chains in self._moe.values()
+                        for c in chains if c is not None for n in c.nodes}
+        self.stats.moe_nodes = len(self._moe)
         self._shift_names = sorted(
             [n.name for n in self.graph.nodes
              if n.is_cim or n.op_type in _SHIFTED_DCOM])
@@ -840,32 +918,93 @@ class LoweredExecutable:
     def _forward(self, packed, shifts, inputs, spans=None):
         loaded: Dict[str, int] = {}          # pool key -> resident segment
         tensors: Dict[str, Any] = dict(inputs)
-        n = next(iter(inputs.values())).shape[0]
         for node in self.graph.nodes:
-            if spans is not None:
-                t0 = obs_trace.now_s()
-            xs = [tensors[t] for t in node.inputs]
-            if node.op_type == "Constant":
-                c = self._consts[node.name]
-                tensors[node.outputs[0]] = c.expand(n, *c.shape)
-            elif node.is_cim:
-                tensors[node.outputs[0]] = self._cim(
-                    node, xs[0], packed, shifts[node.name], loaded, spans)
-            elif node.op_type == "Split":
-                for name, part in zip(node.outputs,
-                                      self._split(node, xs[0])):
-                    tensors[name] = part
-            else:
-                tensors[node.outputs[0]] = self._dcom(node, xs, shifts,
-                                                      spans)
-            if spans is not None:
-                route = {} if node.op_type not in _FLOAT_DCOM else {
-                    "dcom": "table" if node.name in self._tables
-                    else "row" if node.name in self._row_ops
-                    else "host"}
-                spans.span(node.op_type, t0, node=node.name,
-                           cim=node.is_cim, **route)
+            if node.name not in self._in_moe:
+                self._node(node, tensors, packed, shifts, loaded, spans)
         return {t: tensors[t] for t in self.graph.outputs}
+
+    def _node(self, node: Node, tensors: Dict[str, Any], packed, shifts,
+              loaded: Dict[str, int], spans=None) -> None:
+        """Run ``node`` on ``tensors``, adding its outputs."""
+        if spans is not None:
+            t0 = obs_trace.now_s()
+        if node.op_type == "MoE":
+            tensors[node.outputs[0]] = self._moe_dispatch(
+                node, tensors, packed, shifts, loaded, spans)
+        elif node.op_type == "Constant":
+            c = self._consts[node.name]
+            n = next(iter(tensors.values())).shape[0]
+            tensors[node.outputs[0]] = c.expand(n, *c.shape)
+        elif node.is_cim:
+            tensors[node.outputs[0]] = self._cim(
+                node, tensors[node.inputs[0]], packed, shifts[node.name],
+                loaded, spans)
+        elif node.op_type == "Split":
+            for name, part in zip(node.outputs,
+                                  self._split(node, tensors[node.inputs[0]])):
+                tensors[name] = part
+        else:
+            tensors[node.outputs[0]] = self._dcom(
+                node, [tensors[t] for t in node.inputs], shifts, spans)
+        if spans is not None:
+            route = {} if node.op_type not in _FLOAT_DCOM else {
+                "dcom": "table" if node.name in self._tables
+                else "row" if node.name in self._row_ops
+                else "host"}
+            spans.span(node.op_type, t0, node=node.name,
+                       cim=node.is_cim, **route)
+
+    def _moe_dispatch(self, node: Node, tensors: Dict[str, Any], packed,
+                      shifts, loaded: Dict[str, int], spans=None):
+        """An MoE node: each held expert's gated output rows summed into
+        one int64 accumulator and requantized by the node's shift.  An
+        expert with a chain runs it on the rows routed to it alone
+        (gathered, then scattered back with their gates): the host waits
+        on the device here, to learn how many rows each expert takes.  A
+        row routed to no held expert sums to 0."""
+        chains = self._moe[node.name]
+        gates = tensors[node.inputs[0]]
+        lead = gates.shape[:-1]
+        gates = gates.reshape(-1, gates.shape[-1])[:, self._held[node.name]]
+        d = self.graph.shapes[node.outputs[0]][-1]
+        acc = torch.zeros((gates.shape[0], d), dtype=torch.int64,
+                          device=self.device)
+        if spans is not None:
+            t = obs_trace.now_s()
+        # (held expert, row) of every routed pair, expert by expert
+        picks = torch.nonzero((gates >= 0).t())
+        counts = torch.bincount(picks[:, 0], minlength=len(chains)).tolist()
+        if spans is not None:
+            spans.span("moe.route", t, experts_held=len(chains),
+                       routed_rows=int(sum(counts)))
+        reg = obs_metrics.active()
+        start = 0
+        for j, chain in enumerate(chains):
+            g = gates[:, j]
+            if chain is None:
+                y = tensors[node.inputs[1 + j]].reshape(-1, d)
+                acc += torch.clamp(g, min=0)[:, None].to(torch.int64) \
+                    * y.to(torch.int64)
+                continue
+            k = counts[j]
+            rows = picks[start:start + k, 1]
+            start += k
+            if reg is not None:
+                reg.histogram("executor_expert_rows", _ROW_BUCKETS).observe(k)
+            if spans is not None:
+                t = obs_trace.now_s()
+            if k:
+                src = tensors[chain.source]
+                local = {chain.source:
+                         src.reshape(-1, src.shape[-1])[rows][None]}
+                for cn in chain.nodes:
+                    self._node(cn, local, packed, shifts, loaded, spans)
+                y = local[chain.out][0].to(torch.int64)
+                acc.index_add_(0, rows, g[rows, None].to(torch.int64) * y)
+            if spans is not None:
+                spans.span("moe.expert", t, expert=chain.expert, rows=k)
+        y = torch.clamp(acc >> shifts[node.name], -128, 127)
+        return y.to(torch.int32).reshape(*lead, d)
 
     def _rows(self, node: Node, x):
         """(N, windows, R) MVM input rows (im2col for Conv)."""
@@ -981,6 +1120,18 @@ class LoweredExecutable:
         if t == "Concat":
             axis = node.attrs.get("axis", -1)
             return torch.cat(xs, dim=axis if axis < 0 else axis + 1)
+        if t == "Clip":
+            return torch.clamp(xs[0], node.attrs["min"], node.attrs["max"])
+        if t == "RoPE":
+            perm, cos, sin = self._ropes[node.name]
+            x = xs[0][..., perm].to(torch.float64)
+            half = x.shape[-1] // 2
+            rot = torch.cat((-x[..., half:], x[..., :half]), dim=-1)
+            # two products and a sum, each rounded, as the reference
+            y = x * cos + rot * sin
+            return torch.clamp(torch.round(y), -128, 127).to(torch.int32)
+        if t == "TopKRouter":
+            return self._route(node, xs[0], spans)
         if t == "MatMul":
             b = xs[1]
             if node.attrs.get("transpose_b"):
@@ -999,15 +1150,36 @@ class LoweredExecutable:
         row = self._row_ops.get(node.name)
         if row is not None:
             return _row_dcom(node.op_type, xs[0], *row)
-        # else a host round-trip through it (elementwise / last-axis only,
-        # hence batch-transparent)
+        return self._host_dcom(node, xs[0], spans)
+
+    def _host_dcom(self, node: Node, x, spans=None):
+        """A float op's host round trip through the NumPy path
+        (elementwise or over the last axis only, hence batch-transparent)."""
         if spans is not None:
             t0 = obs_trace.now_s()
-        y = _float_host(node, xs[0].cpu().numpy())
+        xh = x.cpu().numpy()
+        if node.op_type == "TopKRouter":
+            y = apply_dcom(node, [xh], self.graph, {}, False)
+        else:
+            y = _float_host(node, xh)
         out = torch.as_tensor(y, device=self.device)
         if spans is not None:
             spans.span("executor.host_dcom", t0, bytes=int(y.nbytes))
         return out
+
+    def _route(self, node: Node, x, spans=None):
+        """A TopKRouter on the device: its Softmax on the row route, each
+        token's ``top_k`` largest weights kept as gates ``clamp(round(32 *
+        w))`` and the other experts -1.  A stable sort gives equal
+        weights to the lower expert index, as the NumPy path does."""
+        row = self._routers.get(node.name)
+        if row is None:
+            return self._host_dcom(node, x, spans)
+        w = _row_float("Softmax", x, *row)
+        top = torch.argsort(-w, dim=-1, stable=True)[..., :node.attrs["top_k"]]
+        routed = torch.zeros_like(w, dtype=torch.bool).scatter_(-1, top, True)
+        q = torch.clamp(torch.round(w * 32.0), -128, 127).to(torch.int32)
+        return torch.where(routed, q, -1)
 
 
 def _float_host(node: Node, x: np.ndarray) -> np.ndarray:
@@ -1070,25 +1242,34 @@ def _pairwise_blocks(v: torch.Tensor) -> torch.Tensor:
 
 
 def _row_dcom(op_type: str, x: torch.Tensor, exp: Optional[torch.Tensor],
-              n: torch.Tensor) -> torch.Tensor:
+              n: torch.Tensor, keep: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
     """Softmax, LayerNorm or RMSNorm over the last axis of an int8-range
     ``x``, on its device, bit-equal to ``_float_host``."""
-    y = _row_float(op_type, x, exp, n)
+    y = _row_float(op_type, x, exp, n, keep)
     return torch.clamp(torch.round(y * 32.0), -128, 127).to(torch.int32)
 
 
 def _row_float(op_type: str, x: torch.Tensor, exp: Optional[torch.Tensor],
-               n: torch.Tensor) -> torch.Tensor:
+               n: torch.Tensor, keep: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
     """``_row_dcom`` before requantization, bit-equal to ``_float_dcom``:
     the reference's float64 operations in its order.  ``exp`` is
     Softmax's ``_softmax_exp_table``; ``n`` the row length as a float64
     tensor on the device, since CUDA divides by a host scalar as a
-    product with its reciprocal.  No fused op: a contracted multiply-add
-    rounds once where the reference rounds twice."""
+    product with its reciprocal; ``keep`` a causal Softmax's mask over
+    the last two axes: a masked score is left out of the row's max and
+    its exponential is 0, in its place in the sum, as the reference's
+    ``exp(-inf)``.  No fused op: a contracted multiply-add rounds once
+    where the reference rounds twice."""
     if op_type == "Softmax":
-        m = x.amax(dim=-1, keepdim=True)
+        # -128 lifts no row's max: each row keeps at least one score
+        m = x if keep is None else torch.where(keep, x, -128)
+        m = m.amax(dim=-1, keepdim=True)
         idx = ((x + 128) * 256 + (m + 128)).reshape(-1)
         e = torch.index_select(exp, 0, idx).view(x.shape)
+        if keep is not None:
+            e = torch.where(keep, e, 0.0)
         y = e / _pairwise_sum(e)
     else:
         y = x.to(torch.float64)
@@ -1108,14 +1289,51 @@ def _sqrt(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(v)
 
 
+def _expert_chain(graph: Graph, moe: Node, expert: int,
+                  out: str) -> Optional[_Expert]:
+    """The nodes that compute ``out``, one of ``moe``'s expert inputs,
+    from one row tensor alone: walking back from ``out``, every
+    ``_ROW_WISE`` node whose outputs only the chain and ``moe`` read
+    (and no graph output is), with Gemms over (rows, features).  ``None``
+    where they read more than one tensor from outside, or none."""
+    chain: List[Node] = []
+    names = {moe.name}
+    need = {out}
+    for node in reversed(graph.nodes):
+        if not need.intersection(node.outputs):
+            continue
+        own = node.op_type in _ROW_WISE and (
+            not node.is_cim or len(graph.shapes[node.inputs[0]]) == 2) and \
+            not any(o in graph.outputs for o in node.outputs) and \
+            all(c.name in names for o in node.outputs
+                for c in graph.consumers(o))
+        if own:
+            chain.append(node)
+            names.add(node.name)
+            need.update(node.inputs)
+    made = {o for n in chain for o in n.outputs}
+    sources = {t for n in chain for t in n.inputs if t not in made}
+    if not chain or len(sources) != 1:
+        return None
+    source = sources.pop()
+    if len(graph.shapes[source]) != 2 or \
+            graph.shapes[source][0] != graph.shapes[out][0]:
+        return None
+    return _Expert(expert=int(expert), source=source,
+                   nodes=tuple(reversed(chain)), out=out)
+
+
 def _int8_range(graph: Graph) -> set:
     """Names of the tensors that every forward keeps in [-128, 127]:
-    the outputs of crossbar nodes and of ``_INT8_OUT`` ops, and of
-    ``_INT8_KEEP`` ops over such tensors alone.  Graph inputs are not
-    among them: nothing clamps what a caller feeds."""
+    the outputs of crossbar nodes and of ``_INT8_OUT`` ops, of a
+    ``Clip`` into that range, and of ``_INT8_KEEP`` ops over such
+    tensors alone.  Graph inputs are not among them: nothing clamps
+    what a caller feeds."""
     marked = set()
     for node in graph.nodes:
-        if node.is_cim or node.op_type in _INT8_OUT or (
+        clip = node.op_type == "Clip" and node.attrs["min"] >= -128 \
+            and node.attrs["max"] <= 127
+        if node.is_cim or node.op_type in _INT8_OUT or clip or (
                 node.op_type in _INT8_KEEP
                 and all(t in marked for t in node.inputs)):
             marked.update(node.outputs)

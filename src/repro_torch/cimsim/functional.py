@@ -170,6 +170,9 @@ def _float_dcom(op_type: str, xs: List[np.ndarray],
         return np.tanh(x)
     if op_type == "Softmax":
         x = x * node.attrs.get("scale", 1.0)
+        if node.attrs.get("causal"):
+            # a masked score is left out of the max and adds 0 to the sum
+            x = np.where(causal_mask(*x.shape[-2:]), x, -np.inf)
         e = np.exp(x - x.max(axis=-1, keepdims=True))
         return e / e.sum(axis=-1, keepdims=True)
     if op_type in ("LayerNorm", "RMSNorm"):
@@ -177,6 +180,103 @@ def _float_dcom(op_type: str, xs: List[np.ndarray],
             x = x - x.mean(axis=-1, keepdims=True)
         return x / np.sqrt((x ** 2).mean(axis=-1, keepdims=True) + 1e-6)
     raise ValueError(f"no float DCOM for {op_type}")
+
+
+def causal_mask(n_q: int, n_k: int) -> np.ndarray:
+    """(n_q, n_k) True where query i may read key j: the queries are the
+    last n_q of n_k positions, and each reads its own and earlier ones."""
+    return np.tri(n_q, n_k, n_k - n_q, dtype=bool)
+
+
+def rope_tables(node: Node, n_pos: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The (n_pos, dim) cos and sin tables of a YaRN ``RoPE`` node at
+    positions 0..n_pos-1, in float64, as ``DeepseekV2YarnRotaryEmbedding``
+    computes them: each frequency ``f_i = base^(-2i/dim)`` is blended
+    with ``f_i / factor`` by a ramp over the dimensions between the
+    correction range of ``beta_fast`` and ``beta_slow`` rotations in
+    ``original_max_position_embeddings`` positions; the frequencies
+    repeat over the two halves; both tables are scaled by
+    ``mscale(factor, mscale) / mscale(factor, mscale_all_dim)``."""
+    a = node.attrs
+    dim, base, factor = a["dim"], a["base"], a["factor"]
+    max_pos = a["original_max_position_embeddings"]
+
+    def correction_dim(rotations):
+        return dim * math.log(max_pos / (rotations * 2 * math.pi)) \
+            / (2 * math.log(base))
+
+    def mscale(m):
+        return 0.1 * m * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+    low = max(math.floor(correction_dim(a["beta_fast"])), 0)
+    high = min(math.ceil(correction_dim(a["beta_slow"])), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = np.clip((np.arange(dim // 2, dtype=np.float64) - low)
+                   / (high - low), 0.0, 1.0)
+    keep = 1.0 - ramp
+    extra = 1.0 / base ** (np.arange(0, dim, 2, dtype=np.float64) / dim)
+    inter = 1.0 / (factor * base ** (np.arange(0, dim, 2, dtype=np.float64)
+                                     / dim))
+    inv_freq = inter * (1.0 - keep) + extra * keep
+    freqs = np.outer(np.arange(n_pos, dtype=np.float64), inv_freq)
+    emb = np.concatenate([freqs, freqs], axis=-1)
+    m = mscale(a["mscale"]) / mscale(a["mscale_all_dim"])
+    return np.cos(emb) * m, np.sin(emb) * m
+
+
+def rope_layout(node: Node, shape: Tuple[int, ...]
+                ) -> Tuple[np.ndarray, Tuple[int, ...]]:
+    """A ``RoPE`` node's operand order and table shape for an operand of
+    one inference's ``shape``: the index taking interleaved pairs to
+    halves (identity unless ``interleaved``), and the shape that puts
+    the tables' positions on the node's ``axis`` and their dimensions
+    last, broadcast over the axes between."""
+    dim, axis = node.attrs["dim"], node.attrs.get("axis", 0) % len(shape)
+    if shape[-1] != dim or axis == len(shape) - 1:
+        raise ValueError(f"{node.name}: RoPE of dim {dim} over positions "
+                         f"on axis {axis} of {shape}")
+    perm = np.arange(dim)
+    if node.attrs.get("interleaved"):
+        perm = np.concatenate([perm[0::2], perm[1::2]])
+    return perm, (shape[axis],) + (1,) * (len(shape) - axis - 2) + (dim,)
+
+
+def _rope(x: np.ndarray, node: Node) -> np.ndarray:
+    """``x * cos + rotate_half(x) * sin`` in float64 on the operand's
+    interleaved pairs taken to halves, rounded back to the int8 grid
+    (the rotation keeps its operand's scale)."""
+    perm, tshape = rope_layout(node, x.shape)
+    cos, sin = rope_tables(node, tshape[0])
+    x = x[..., perm].astype(np.float64)
+    half = x.shape[-1] // 2
+    rot = np.concatenate([-x[..., half:], x[..., :half]], axis=-1)
+    y = x * cos.reshape(tshape) + rot * sin.reshape(tshape)
+    return np.clip(np.round(y), -128, 127).astype(np.int32)
+
+
+def route_topk(w: np.ndarray, k: int) -> np.ndarray:
+    """A ``TopKRouter``'s output from its softmax weights ``w`` (..., E):
+    each of the ``k`` largest weights of a token as its gate
+    ``clamp(round(32 * w))``, the other experts -1 (not routed).  Equal
+    weights go to the lower expert index."""
+    q = np.clip(np.round(w * 32.0), -128, 127)
+    top = np.argsort(-w, axis=-1, kind="stable")[..., :k]
+    routed = np.zeros(w.shape, bool)
+    np.put_along_axis(routed, top, True, axis=-1)
+    return np.where(routed, q, -1).astype(np.int32)
+
+
+def moe_sum(gates: np.ndarray, outs: List[np.ndarray],
+            experts) -> np.ndarray:
+    """The int64 sum over the held ``experts`` of each routed token's
+    gate times that expert's output row (``outs[j]`` of expert
+    ``experts[j]``); a token routed to no held expert sums to 0."""
+    y = np.zeros(outs[0].shape, np.int64)
+    for e, out in zip(experts, outs):
+        g = np.maximum(gates[..., e], 0).astype(np.int64)
+        y += g[..., None] * out.astype(np.int64)
+    return y
 
 
 def apply_dcom(node: Node, xs: List[np.ndarray], graph: Graph,
@@ -188,6 +288,18 @@ def apply_dcom(node: Node, xs: List[np.ndarray], graph: Graph,
         return np.maximum(xs[0], 0)
     if t == "Constant":
         return constant_value(node)
+    if t == "Clip":
+        return np.clip(xs[0], node.attrs["min"], node.attrs["max"]) \
+            .astype(np.int32)
+    if t == "RoPE":
+        return _rope(xs[0], node)
+    if t == "TopKRouter" and "top_k" in node.attrs:
+        return route_topk(_float_dcom("Softmax", xs, node),
+                          node.attrs["top_k"])
+    if t == "MoE":
+        y = moe_sum(xs[0], xs[1:], node.attrs["experts"])
+        sh = _shift_for(node, y, shifts, calibrating)
+        return np.clip(y >> sh, -128, 127).astype(np.int32)
     if t == "Add":
         y = xs[0].astype(np.int64) + xs[1].astype(np.int64)
         sh = _shift_for(node, y, shifts, calibrating)
@@ -222,12 +334,24 @@ def apply_dcom(node: Node, xs: List[np.ndarray], graph: Graph,
     if t == "MatMul":
         b = np.swapaxes(xs[1], -1, -2) if node.attrs.get("transpose_b") \
             else xs[1]
-        y = xs[0].astype(np.int64) @ b.astype(np.int64)
+        y = _int_matmul(xs[0], b)
         sh = _shift_for(node, y, shifts, calibrating)
         return np.clip(y >> sh, -128, 127).astype(np.int32)
     # float fallback ops re-quantized to int8 grid
     y = _float_dcom(t, xs, node)
     return np.clip(np.round(y * 32.0), -128, 127).astype(np.int32)
+
+
+def _int_matmul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """``a @ b`` of integer arrays as int64: through float64's BLAS where
+    every product and partial sum is an integer float64 holds exactly
+    (NumPy's int64 product has no BLAS), else in int64."""
+    bound = a.shape[-1] * int(np.abs(a).max(initial=0)) \
+        * int(np.abs(b).max(initial=0))
+    if bound < 2 ** 53:
+        return (a.astype(np.float64) @ b.astype(np.float64)) \
+            .astype(np.int64)
+    return a.astype(np.int64) @ b.astype(np.int64)
 
 
 def _shift_for(node: Node, y, shifts: Dict[str, int],

@@ -662,6 +662,12 @@ def run(graph: Graph, arch: CIMArch, *, use_pipeline: bool = True,
         assert best is not None, f"no feasible chunking for {node.name}"
         _, rc, cc, units_c_chunk = best
         sub_r = math.ceil(r / rc)
+        if node.attrs.get("aligned_rows"):
+            # each chunk starts on a crossbar's first row, so its
+            # parallel-row reads cover the rows the unchunked matrix's
+            # reads do; it spans no more crossbars than the even split
+            sub_r = math.ceil(grid_r_full / rc) * arch.xb.rows
+            rc = math.ceil(r / sub_r)
         sub_c = min(c, units_c_chunk * cols_per_unit)
         n_chunks = rc * cc
         for ch in range(n_chunks):

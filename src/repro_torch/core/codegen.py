@@ -36,7 +36,7 @@ _DCOM_OF = {
     "RoPE": "rope", "TopKRouter": "topk_router", "Softcap": "softcap",
     "Flatten": "flatten", "Reshape": "reshape", "Concat": "concat",
     "Split": "split", "Identity": "identity", "Transpose": "transpose",
-    "Constant": "const",
+    "Constant": "const", "MoE": "moe", "Clip": "clip",
 }
 
 MAX_EXPANDED_OPS = 500_000

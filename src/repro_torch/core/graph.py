@@ -30,7 +30,7 @@ ALU_OPS = {
     "RMSNorm", "BatchNorm", "Add", "Mul", "MaxPool", "AveragePool",
     "GlobalAveragePool", "Flatten", "Reshape", "Concat", "Split",
     "MatMul", "Embedding", "SSMScan", "RoPE", "TopKRouter", "Softcap",
-    "Identity", "Transpose", "Constant",
+    "Identity", "Transpose", "Constant", "MoE", "Clip",
 }
 KNOWN_OPS = CIM_OPS | ALU_OPS
 
@@ -260,6 +260,8 @@ def infer_node_shape(n: Node, sh: Dict[str, Tuple[int, ...]]) -> None:
         sh[n.outputs[0]] = tuple(x) + (n.attrs["weight_shape"][1],)
     elif t == "TopKRouter":
         sh[n.outputs[0]] = tuple(x[:-1]) + (n.attrs["n_experts"],)
+    elif t == "MoE":                                    # (gates, *experts)
+        sh[n.outputs[0]] = sh[n.inputs[1]]
     else:  # elementwise / normalization / misc keep shape of first input
         for o in n.outputs:
             sh[o] = x

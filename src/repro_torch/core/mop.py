@@ -39,6 +39,7 @@ DCOM_KINDS = {
     "maxpool", "avgpool", "softmax", "layernorm", "rmsnorm", "matmul",
     "embedding", "ssm_scan", "rope", "topk_router", "softcap", "identity",
     "transpose", "concat", "split", "flatten", "reshape", "const",
+    "moe", "clip",
 }
 
 

@@ -2,6 +2,7 @@
 from .vgg import vgg7, vgg16
 from .resnet import resnet18, resnet34, resnet50, resnet101
 from .vit import vit_base, vit_b16
+from .deepseek_v2 import deepseek_v2_lite
 from .tiny import tiny_cnn, tiny_mlp, conv_relu_toy
 
 WORKLOADS = {
@@ -13,6 +14,7 @@ WORKLOADS = {
     "resnet101": resnet101,
     "vit": vit_base,
     "vit_b16": vit_b16,
+    "deepseek_v2_lite": deepseek_v2_lite,
     "tiny_cnn": tiny_cnn,
     "tiny_mlp": tiny_mlp,
     "conv_relu_toy": conv_relu_toy,
